@@ -1,0 +1,129 @@
+"""User-facing Renderer: the multi-view triangle renderer (forward).
+
+Port of ``dmesh2_renderer_tpu/models/renderer.py``: hold a batch of cameras,
+precompute per-pixel rays once, and per call project vertices, build the
+screen-space AA triangles, slice patch rays, rasterize and remap depth.
+
+Differences from the JAX class:
+  * ``device`` selects where it runs: ``None`` means the card (``"cuda"``),
+    and without a card that raises; ``device="cpu"`` runs the plain PyTorch
+    versions of the kernels.
+  * ``aa_grad_buffer_size`` is accepted but unused, as in the JAX class.
+  * ``forward`` exposes the binning statistics of the last call via
+    ``self.last_aux``.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+from dmesh2_renderer_tpu_torch import geometry as G
+from dmesh2_renderer_tpu_torch.ops.rasterize import make_rasterizer
+from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
+from dmesh2_renderer_tpu_torch.utils.validate import (
+    check_cameras,
+    check_patch_windows,
+    check_render_args,
+    resolve_device,
+    valence_cache,
+)
+
+
+class Renderer:
+    def __init__(self, mv, proj, width, height, device=None,
+                 aa_grad_buffer_size: int = 20, config: RasterConfig | None = None):
+        check_cameras(mv, proj)
+        self.device = resolve_device(device)
+        self.mv = torch.as_tensor(mv, dtype=torch.float32, device=self.device)
+        self.proj = torch.as_tensor(proj, dtype=torch.float32, device=self.device)
+        self.width = int(width)
+        self.height = int(height)
+        self.num_batch = self.mv.shape[0]
+        self.aa_grad_buffer_size = aa_grad_buffer_size  # parity arg; unused
+        self.config = config or RasterConfig()
+        self.last_aux = None
+        # Per-pixel camera rays, precomputed once.
+        self.ray_o, self.ray_d = G.init_rays(self.mv, self.proj, self.width,
+                                             self.height)
+
+    def compute_verts_ndc_image(self, verts, mv, proj):
+        return G.compute_verts_ndc_image(verts, mv, proj, self.width, self.height)
+
+    def forward(
+        self,
+        batch_mvp_idx,        # (B,) int camera indices
+        batch_patch_min,      # (B, 2) int patch origins
+        patch_width: int,
+        patch_height: int,
+        verts,                # (P, 3)
+        faces,                # (F, 3) int
+        verts_color,          # (P, 3)
+        faces_opacity,        # (F,)
+        faces_intense,        # (B, F)
+        background,           # (3,)
+        aa_temperature: float = 1.0,
+    ):
+        """Render. Returns (color (B, ph, pw, 3), depth (B, ph, pw) in [0, 1],
+        larger = nearer)."""
+        dev = self.device
+        pw, ph = int(patch_width), int(patch_height)
+        check_patch_windows(batch_mvp_idx, batch_patch_min, pw, ph,
+                            self.num_batch, self.width, self.height)
+        batch_mvp_idx = torch.as_tensor(batch_mvp_idx, dtype=torch.int64, device=dev)
+        batch_patch_min = torch.as_tensor(batch_patch_min, dtype=torch.int32,
+                                          device=dev)
+        check_render_args(
+            verts, faces, verts_color, faces_opacity, faces_intense,
+            background, batch_mvp_idx.shape[0], aa_temperature,
+        )
+        # Valence and vertex-index check on the caller's own object, before
+        # conversion, so the identity fast path holds across calls.
+        valence_cache.check(faces, self.config.max_vertex_valence, len(verts))
+
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        verts = f32(verts)
+        faces = torch.as_tensor(faces, dtype=torch.int32, device=dev).contiguous()
+
+        b_mv = self.mv[batch_mvp_idx]
+        b_proj = self.proj[batch_mvp_idx]
+        verts_ndc, verts_image = G.compute_verts_ndc_image(
+            verts, b_mv, b_proj, self.width, self.height)
+        aa_verts = G.face_aa_verts_ccw(verts_image, faces)
+        ray_o, ray_d = G.select_rays(self.ray_o, self.ray_d, batch_mvp_idx,
+                                     batch_patch_min, pw, ph)
+        rasterize = make_rasterizer(pw, ph, float(aa_temperature), self.config)
+        color, depth_raw, _final_t, aux = rasterize(
+            verts, f32(verts_color), f32(faces_opacity), verts_ndc,
+            f32(faces_intense), aa_verts, faces, f32(background),
+            batch_patch_min, ray_o[:, 0, 0, :], ray_d,
+        )
+        self.last_aux = aux
+        if self.config.warn_on_overflow:
+            truncated = int(aux.num_truncated)
+            if truncated > 0:
+                warnings.warn(
+                    f"binning truncated {truncated} of "
+                    f"{int(aux.num_rendered)} face instances; the rendered "
+                    "image is missing geometry. Raise "
+                    "RasterConfig.binning_capacity (or max_tiles_per_face "
+                    "for faces spanning many tiles).",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+            cap2 = self.config.grad_compact_capacity
+            if cap2 and int(aux.num_grad_contributing) > cap2:
+                warnings.warn(
+                    f"{int(aux.num_grad_contributing)} entries contribute "
+                    f"gradients but grad_compact_capacity={cap2}: backward "
+                    "drops the excess (wrong gradients for some tiles). "
+                    "Raise RasterConfig.grad_compact_capacity.",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+        return color, 1.0 - (depth_raw + 1.0) / 2.0
+
+    __call__ = forward

@@ -1,0 +1,107 @@
+"""Test/benchmark geometry: icosphere, triangle soup, cameras (numpy).
+
+The port's own copy of ``dmesh2_renderer_tpu/utils/meshes.py`` (the JAX
+package's ``__init__`` imports JAX, so the port cannot import it). The tet
+grid of the layered renderer comes with that renderer's slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def icosphere(subdivisions: int = 1):
+    """Unit icosphere. Returns (verts (P,3) f32, faces (F,3) i32)."""
+    t = (1.0 + 5.0**0.5) / 2.0
+    verts = np.array(
+        [
+            [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+            [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+            [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+        ],
+        dtype=np.float64,
+    )
+    faces = np.array(
+        [
+            [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+            [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+            [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+            [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+        ],
+        dtype=np.int64,
+    )
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+
+    for _ in range(subdivisions):
+        edge_mid = {}
+        vlist = list(verts)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = (vlist[a] + vlist[b]) / 2.0
+                m /= np.linalg.norm(m)
+                edge_mid[key] = len(vlist)
+                vlist.append(m)
+            return edge_mid[key]
+
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.array(vlist)
+        faces = np.array(new_faces, dtype=np.int64)
+
+    return verts.astype(np.float32), faces.astype(np.int32)
+
+
+def triangle_soup(n_faces: int, seed: int = 0, extent: float = 1.0, size: float = 0.05):
+    """Random triangle soup in [-extent, extent]^3 (benchmark config 4)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-extent, extent, size=(n_faces, 1, 3))
+    offsets = rng.normal(scale=size, size=(n_faces, 3, 3))
+    tri = (centers + offsets).astype(np.float32)
+    verts = tri.reshape(-1, 3)
+    faces = np.arange(n_faces * 3, dtype=np.int32).reshape(-1, 3)
+    return verts, faces
+
+
+def look_at(eye, center=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0)):
+    """Right-handed look-at model-view matrix (camera looks down -z)."""
+    eye = np.asarray(eye, dtype=np.float64)
+    center = np.asarray(center, dtype=np.float64)
+    up = np.asarray(up, dtype=np.float64)
+    fwd = center - eye
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, up)
+    right /= np.linalg.norm(right)
+    true_up = np.cross(right, fwd)
+    mv = np.eye(4)
+    mv[0, :3] = right
+    mv[1, :3] = true_up
+    mv[2, :3] = -fwd
+    mv[:3, 3] = -mv[:3, :3] @ eye
+    return mv.astype(np.float32)
+
+
+def perspective(fovy_deg=45.0, aspect=1.0, near=0.1, far=10.0):
+    """OpenGL-style perspective projection (NDC z in [-1, 1])."""
+    f = 1.0 / np.tan(np.deg2rad(fovy_deg) / 2.0)
+    m = np.zeros((4, 4), dtype=np.float64)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 2] = (far + near) / (near - far)
+    m[2, 3] = 2 * far * near / (near - far)
+    m[3, 2] = -1.0
+    return m.astype(np.float32)
+
+
+def orbit_cameras(n: int, radius: float = 3.0, elevation: float = 0.3):
+    """n cameras orbiting the origin. Returns (mv (n,4,4), proj (n,4,4))."""
+    mvs, projs = [], []
+    for i in range(n):
+        ang = 2 * np.pi * i / max(n, 1)
+        eye = (radius * np.cos(ang), radius * elevation, radius * np.sin(ang))
+        mvs.append(look_at(eye))
+        projs.append(perspective())
+    return np.stack(mvs), np.stack(projs)

@@ -1,0 +1,165 @@
+"""API-boundary shape/value validation.
+
+The port's copy of ``dmesh2_renderer_tpu/utils/validate.py``: malformed
+arguments raise ValueError before any tensor work, with the same messages.
+Arguments may be numpy arrays or torch tensors on any device.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import weakref
+
+import numpy as np
+import torch
+
+
+def _shape(x):
+    return tuple(getattr(x, "shape", ()))
+
+
+def _host_array(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def check_vertex_valence(faces, max_vertex_valence: int,
+                         num_verts: int | None = None) -> bool:
+    """Fail loudly when a vertex's valence exceeds the gradient-scan cap.
+
+    The JAX package reduces face gradients onto shared vertices with a
+    segmented scan of depth ``RasterConfig.max_vertex_valence``; a vertex
+    with more incident faces would get a truncated gradient sum. The port
+    keeps the same contract at its entry points. With ``num_verts`` it also
+    checks that every index lies in [0, num_verts): the CUDA kernels read
+    vertex rows through these indices unchecked. Raises ValueError on
+    violation; returns True.
+    """
+    f = _host_array(faces)
+    if f.size == 0:
+        return True
+    if num_verts is not None and (f.min() < 0 or f.max() >= num_verts):
+        raise ValueError(
+            f"faces index vertices in [{f.min()}, {f.max()}], outside "
+            f"[0, {num_verts})")
+    val = int(np.bincount(f.ravel()).max())
+    if val > max_vertex_valence:
+        raise ValueError(
+            f"mesh has a vertex shared by {val} faces, above "
+            f"RasterConfig.max_vertex_valence={max_vertex_valence}: its "
+            "gradient would be silently truncated. Set "
+            f"RasterConfig(max_vertex_valence={1 << (val - 1).bit_length()}) "
+            "(the scan cost is logarithmic in the cap)."
+        )
+    return True
+
+
+class _ValenceCache:
+    """Memoizes successful valence checks.
+
+    Two levels: an object-identity fast path (zero cost when callers pass
+    the same ``faces`` object every step), backed by a content-digest cache
+    so a different same-shape topology is re-validated. Weakrefs guard the
+    id fast path against id reuse after garbage collection.
+    """
+
+    def __init__(self):
+        self._by_id = {}       # (id, cap, P) -> weakref to the checked object
+        self._digests = set()  # (shape, cap, P, sha1) that passed
+
+    def check(self, faces, max_vertex_valence: int,
+              num_verts: int | None = None) -> bool:
+        idkey = (id(faces), max_vertex_valence, num_verts)
+        ref = self._by_id.get(idkey)
+        if ref is not None and ref() is faces:
+            return True
+        f = _host_array(faces)
+        digest = (f.shape, max_vertex_valence, num_verts,
+                  hashlib.sha1(np.ascontiguousarray(f).tobytes()).hexdigest())
+        if digest not in self._digests:
+            check_vertex_valence(f, max_vertex_valence, num_verts)  # raises
+            self._digests.add(digest)
+        try:
+            self._by_id[idkey] = weakref.ref(faces)
+        except TypeError:  # numpy arrays and tensors take weakrefs; lists do not
+            pass
+        return True
+
+
+# Shared across the eager entry points (models.Renderer, functional.render):
+# all of them validate the same contract against the same topology objects.
+valence_cache = _ValenceCache()
+
+
+def check_render_args(verts, faces, verts_color, faces_opacity, faces_intense,
+                      background, n_batch, aa_temperature):
+    p3 = _shape(verts)
+    if len(p3) != 2 or p3[1] != 3:
+        raise ValueError(f"verts must be (P, 3), got {p3}")
+    p = p3[0]
+    fs = _shape(faces)
+    if len(fs) != 2 or fs[1] != 3:
+        raise ValueError(f"faces must be (F, 3), got {fs}")
+    f = fs[0]
+    if _shape(verts_color) != (p, 3):
+        raise ValueError(
+            f"verts_color must be (P, 3) = ({p}, 3), got {_shape(verts_color)}"
+        )
+    if _shape(faces_opacity) != (f,):
+        raise ValueError(
+            f"faces_opacity must be (F,) = ({f},), got {_shape(faces_opacity)}"
+        )
+    if _shape(faces_intense) != (n_batch, f):
+        raise ValueError(
+            f"faces_intense must be (B, F) = ({n_batch}, {f}), "
+            f"got {_shape(faces_intense)}"
+        )
+    if _shape(background) != (3,):
+        raise ValueError(f"background must be (3,), got {_shape(background)}")
+    tau = float(aa_temperature)
+    if not 0.0 <= tau <= 1.0:
+        raise ValueError(f"aa_temperature must be in [0, 1], got {tau}")
+
+
+def check_cameras(mv, proj):
+    ms, ps = _shape(mv), _shape(proj)
+    if len(ms) != 3 or ms[1:] != (4, 4):
+        raise ValueError(f"mv must be (B, 4, 4), got {ms}")
+    if ps != ms:
+        raise ValueError(f"proj must match mv {ms}, got {ps}")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless asked otherwise.
+
+    ``None`` means ``"cuda"``. A CUDA device without a usable card raises:
+    the entry points never carry on silently on the CPU; pass
+    ``device="cpu"`` to run the plain versions there.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels on the CPU")
+    return dev
+
+
+def check_patch_windows(batch_mvp_idx, batch_patch_min, patch_width: int,
+                        patch_height: int, num_cameras: int, width: int,
+                        height: int):
+    """Every view's camera index and patch window must lie in the frame:
+    the rays of each window are gathered from the full-frame ray maps."""
+    idx = _host_array(batch_mvp_idx).reshape(-1)
+    pm = _host_array(batch_patch_min)
+    if pm.shape != (idx.shape[0], 2):
+        raise ValueError(
+            f"batch_patch_min must be (B, 2) = ({idx.shape[0]}, 2), got {pm.shape}")
+    if idx.size and (idx.min() < 0 or idx.max() >= num_cameras):
+        raise ValueError(
+            f"batch_mvp_idx must index the {num_cameras} cameras, got {idx.tolist()}")
+    if pm.size and (pm.min() < 0 or (pm[:, 0] + patch_width).max() > width
+                    or (pm[:, 1] + patch_height).max() > height):
+        raise ValueError(
+            f"patch windows {pm.tolist()} of {patch_width}x{patch_height} "
+            f"leave the {width}x{height} frame")

@@ -1,0 +1,100 @@
+"""Port tile binning and record pack vs the JAX package, bit for bit.
+
+Both sides bin IDENTICAL numpy inputs (screen triangles, depths, cull mask,
+window origins), so every output must be exactly equal.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dmesh2_renderer_tpu import geometry as JG
+from dmesh2_renderer_tpu.ops import binning as JB
+from dmesh2_renderer_tpu.ops.reference import face_depth01
+from dmesh2_renderer_tpu_torch.convert import scene_from_jax
+from dmesh2_renderer_tpu_torch.ops import binning as TB
+from tests._torch_port import scene_arrays, to_numpy
+
+W, H, B = 48, 40, 2
+PATCH_MIN = np.asarray([[0, 0], [5, 3]], np.int32)
+
+
+@functools.lru_cache(maxsize=1)
+def _inputs():
+    s = scene_arrays(b=B)
+    verts_ndc, verts_image = JG.compute_verts_ndc_image(
+        jnp.asarray(s["verts"]), jnp.asarray(s["mv"]), jnp.asarray(s["proj"]), W, H)
+    aa = JG.face_aa_triangles(verts_image, jnp.asarray(s["faces"])).verts
+    depth01, _, _, alive = face_depth01(verts_ndc, jnp.asarray(s["faces"]))
+    return s, np.array(verts_ndc), np.array(aa), np.array(depth01), np.array(alive)
+
+
+# case -> (bin_faces keywords, whether entries are truncated)
+CASES = {
+    # bbox rects only, no giant tier, ample capacity
+    "rect": (dict(capacity=2048, max_tiles_per_face=64, num_giant_faces=0), False),
+    # exact cull + a giant tier that takes every face over Kt=2 tiles
+    "cull_giant": (dict(capacity=2048, max_tiles_per_face=2, num_giant_faces=160,
+                        giant_tiles=None, exact_tile_cull=True), False),
+    # giant tier too small for the oversized faces, 3-tile giant rows
+    "giant_overflow": (dict(capacity=2048, max_tiles_per_face=1,
+                            num_giant_faces=8, giant_tiles=3), True),
+    # capacity overflow: entries past the capacity are dropped and counted
+    "capacity_overflow": (dict(capacity=100, max_tiles_per_face=4,
+                               num_giant_faces=4, exact_tile_cull=True), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bin_faces_matches_jax_exactly(case):
+    kw, truncates = CASES[case]
+    _, _, aa, depth01, alive = _inputs()
+    j = JB.bin_faces(jnp.asarray(aa), jnp.asarray(depth01), jnp.asarray(alive),
+                     jnp.asarray(PATCH_MIN), W, H, **kw)
+    t = TB.bin_faces(torch.as_tensor(aa), torch.as_tensor(depth01),
+                     torch.as_tensor(alive), torch.as_tensor(PATCH_MIN), W, H, **kw)
+    for name in JB.Binning._fields:
+        a, b = to_numpy(getattr(j, name)), to_numpy(getattr(t, name))
+        assert b.shape == a.shape, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    assert (int(t.num_truncated) > 0) == truncates
+    if kw["num_giant_faces"]:
+        assert (to_numpy(t.giant_ids) < B * aa.shape[1]).any()
+
+
+def test_face_tile_rects_matches_jax():
+    _, _, aa, _, _ = _inputs()
+    gx, gy = JB.tile_grid_size(W, H)
+    j = JB.face_tile_rects(jnp.asarray(aa), jnp.asarray(PATCH_MIN), gx, gy)
+    t = TB.face_tile_rects(torch.as_tensor(aa), torch.as_tensor(PATCH_MIN), gx, gy)
+    for a, b in zip(j, t):
+        np.testing.assert_array_equal(to_numpy(b), to_numpy(a))
+
+
+def test_record_pack_matches_jax_exactly():
+    """The plain record pack equals unblock_stream(JAX gather_stream(...)):
+    pure copies, sentinel entries included."""
+    s, verts_ndc, aa, depth01, alive = _inputs()
+    binning = JB.bin_faces(jnp.asarray(aa), jnp.asarray(depth01), jnp.asarray(alive),
+                           jnp.asarray(PATCH_MIN), W, H, capacity=1024,
+                           max_tiles_per_face=64)
+    entry = np.array(binning.entry_bf)
+    assert (entry == B * aa.shape[1]).any()      # sentinels present
+    v9, c9, z = JB.gather_face_corners(
+        jnp.asarray(s["verts"]), jnp.asarray(s["verts_color"]),
+        jnp.asarray(verts_ndc), jnp.asarray(s["faces"]))
+    table = JB.build_face_table_from_corners(
+        v9, c9, z, jnp.asarray(s["faces_opacity"]), jnp.asarray(s["faces_intense"]),
+        jnp.asarray(aa), interpret=True)
+    want = np.asarray(JB.unblock_stream(JB.gather_stream(table, jnp.asarray(entry))))
+
+    t = scene_from_jax({k: s[k] for k in ("verts", "faces", "verts_color",
+                                          "faces_opacity", "faces_intense")}, "cpu")
+    got = TB.pack_stream(torch.as_tensor(entry), t["faces"], t["verts"],
+                         t["verts_color"], torch.as_tensor(verts_ndc),
+                         t["faces_opacity"], t["faces_intense"], torch.as_tensor(aa))
+    assert tuple(got.shape) == want.shape == (1024, 32)
+    np.testing.assert_array_equal(to_numpy(got), want)
