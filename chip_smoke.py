@@ -10,26 +10,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. Build every CUDA kernel from ``dmesh2_renderer_tpu_torch/csrc`` (one nvcc
    per source, all at once) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, on the
-   inputs ``Renderer.forward`` gives it (recorded as it calls the kernel
-   wrappers): icosphere(3), 4 views at 512x512 through one ragged patch
+   inputs the entry points give it (recorded as they call the kernel
+   wrappers): icosphere(3), 4 views at 512x512 through one ragged 376x312
    window, tau 1 and 0. ``pack_stream`` must equal its plain version
    exactly; ``composite_fwd`` must agree within 1e-5 on colour, depth,
    final_t and prev_t, with at most 1e-4 of pixels (and of tiles) differing
-   in n_contrib (nc_tile). The whole Renderer on the card is also held
-   against the plain reference compositor (``use_pallas=False``) on a small
-   scene.
-3. The main path at full size: ``Renderer.forward`` on the 1M-triangle
-   soup at 1920x1080 (the JAX package's headline scene), with every kernel
+   in n_contrib (nc_tile); ``composite_bwd`` (from ``loss.backward()``
+   through ``render_partial``, with a loss on colour, depth and final_t)
+   must agree column by column within 2e-5 x max(|column|, 1) on colour,
+   opacity, intensity and z and 5e-4 x max(|column|, 1) on the
+   Moeller-Trumbore and AA columns. The whole Renderer on the card is also
+   held against the plain reference compositor (``use_pallas=False``) on a
+   small scene: images, and the gradients autograd takes through it.
+3. The main path at full size: one training step, ``Renderer.forward`` on
+   the 1M-triangle soup at 1920x1080 (the JAX package's headline scene) and
+   ``loss.backward()`` of ``color.sum() + depth.sum()``, with every kernel
    launch count set to 0 just before and read just after; every kernel must
    have launched. The output must be finite, drop no entries and cover
-   pixels. Both kernels' outputs of that run, and of a 256x256 window of the
-   same scene, are held against their plain versions as in phase 2.
+   pixels, and every gradient must be finite and non-zero. The kernels'
+   outputs of that step, and the forward kernels' of a 256x256 window of
+   the same scene, are held against their plain versions as in phase 2.
+   Then 5 Adam steps toward a target rendered with perturbed colours must
+   lower the loss.
 4. Timing with CUDA events (median of repeated runs after warm-up): the
-   1080p forward, each kernel on the main path's own inputs beside its
-   plain version and its bound (the compositor's from the work its plain
-   version counts on those inputs), the ``index_select`` yardstick of the
-   record pack, and every stage of the forward (projection, depth/cull,
-   binning and its sort, pack, composite).
+   1080p forward and training step, the backward alone, each kernel on the
+   main path's own inputs beside its plain version and its bound (the
+   compositors' from the work their plain versions count on those inputs),
+   the ``index_select`` yardstick of the record pack, every stage of the
+   forward (projection, depth/cull, binning and its sort, pack, composite)
+   and of the backward (composite_bwd, the gradient reduction, the
+   autograd tail through the projection and the AA corners).
 
 The next-to-last lines are the ``{"kernels": [...]}`` JSON line and the
 card's ``nvidia-smi`` name and power limit; the last line is the
@@ -60,10 +70,20 @@ FP32_OPS_PER_S = 67e12
 REPLACES = {
     "pack_stream": "dmesh2_renderer_tpu/ops/binning.py:58",
     "composite_fwd": "dmesh2_renderer_tpu/ops/pallas_fwd.py:254",
+    "composite_bwd": "dmesh2_renderer_tpu/ops/pallas_bwd.py:62",
 }
 
 KERNEL_TOL = 1e-5          # colour, depth, final_t, prev_t: kernel vs plain
 COUNT_MISMATCH_FRAC = 1e-4  # n_contrib / nc_tile mismatches allowed
+# composite_bwd vs its plain version, per gradient-record column, times
+# max(|column|, 1): the kernel's block sums and the plain version's
+# torch.sum associate differently, and the Moeller-Trumbore and AA columns
+# come out of epilogues that cancel (the tolerances of
+# tests/test_pallas_bwd.py:97-102).
+BWD_COLUMNS = [(9, 18, "verts_color", 2e-5), (18, 19, "opacity", 2e-5),
+               (19, 20, "intensity", 2e-5), (20, 23, "z", 2e-5),
+               (0, 9, "verts", 5e-4), (23, 29, "aa", 5e-4)]
+TRAINABLE = ("verts", "verts_color", "faces_opacity", "faces_intense")
 
 
 @dataclasses.dataclass
@@ -83,6 +103,7 @@ class Sizes:
     capacity: int = 32 * (1 << 17)
     reps: int = 10
     plain_reps: int = 3
+    adam_steps: int = 5
 
 
 def nvidia_smi_line() -> str:
@@ -139,9 +160,10 @@ def scene_args(s):
 @contextlib.contextmanager
 def captured_kernel_calls():
     """Record the arguments and the result of each kernel wrapper as the
-    main path calls it (``pack_stream`` and ``composite_forward``, looked up
-    in ``ops/rasterize.py``), so that the checks and the timings run on
-    exactly what ``Renderer.forward`` fed the kernels.
+    main path calls it (``pack_stream``, ``composite_forward`` and
+    ``composite_backward``, looked up in ``ops/rasterize.py``), so that the
+    checks and the timings run on exactly what the forward and the backward
+    fed the kernels.
 
     Yields a dict: wrapper name -> (positional args, result) of its last call.
     """
@@ -149,12 +171,17 @@ def captured_kernel_calls():
 
     calls = {}
     originals = {name: getattr(rasterize, name)
-                 for name in ("pack_stream", "composite_forward")}
+                 for name in ("pack_stream", "composite_forward",
+                              "composite_backward")}
+
+    def detached(xs):
+        return tuple(x.detach() if isinstance(x, torch.Tensor) else x for x in xs)
 
     def recording(name, fn):
         def call(*args):
             out = fn(*args)
-            calls[name] = (args, out)
+            calls[name] = (detached(args), detached(out) if isinstance(out, tuple)
+                           else out.detach())
             return out
         return call
 
@@ -219,8 +246,52 @@ def check_kernels(calls, label, report, work=None):
     return plain
 
 
+def compare_backward(kernel_rec, plain_rec, label):
+    """Column-group errors of composite_bwd vs its plain version, each
+    against its tolerance (``BWD_COLUMNS``); raises when one exceeds it.
+    Returns the largest absolute error."""
+    if not torch.isfinite(kernel_rec).all():
+        raise AssertionError(f"{label}: composite_bwd records not finite")
+    worst, msgs = 0.0, []
+    for lo, hi, name, tol in BWD_COLUMNS:
+        k, p = kernel_rec[:, lo:hi], plain_rec[:, lo:hi]
+        err = float((k - p).abs().max()) if k.numel() else 0.0
+        scale = max(float(p.abs().max()) if p.numel() else 0.0, 1.0)
+        worst = max(worst, err)
+        msgs.append(f"{name}={err:.3g}/{scale:.3g}")
+        if err > tol * scale:
+            raise AssertionError(f"{label}: composite_bwd {name} error {err} > "
+                                 f"{tol} x {scale}")
+    pad = float(kernel_rec[:, 29:].abs().max()) if kernel_rec.numel() else 0.0
+    if pad != 0.0:
+        raise AssertionError(f"{label}: composite_bwd padding columns not zero")
+    print(f"  {label}: composite_bwd max|err|/scale " + " ".join(msgs) +
+          f" ({int((kernel_rec != 0).any(dim=1).sum())} non-zero of "
+          f"{kernel_rec.shape[0]} rows)")
+    return worst
+
+
+def check_backward(calls, label, report, work=None):
+    """Hold composite_bwd's output from one backward (``calls`` from
+    :func:`captured_kernel_calls`) against its plain version on the same
+    inputs; ``work`` is passed on to count the work of these inputs."""
+    from dmesh2_renderer_tpu_torch.ops.composite_bwd import composite_backward_plain
+
+    args, out = calls["composite_backward"]
+    plain = composite_backward_plain(*args, work=work)
+    sync()
+    err = compare_backward(out, plain, f"{label} tau={args[-1]}")
+    report["composite_bwd"]["max_abs_err"] = max(report["composite_bwd"]["max_abs_err"], err)
+    return plain
+
+
+def leaves_of(s):
+    """Trainable leaf copies of a scene's parameters."""
+    return {k: s[k].detach().clone().requires_grad_(True) for k in TRAINABLE}
+
+
 def phase_kernel_checks(dev, sz: Sizes, report):
-    from dmesh2_renderer_tpu_torch import RasterConfig, Renderer
+    from dmesh2_renderer_tpu_torch import RasterConfig, Renderer, render_partial
     from dmesh2_renderer_tpu_torch.utils.meshes import icosphere, orbit_cameras
 
     print(f"phase 2: kernels vs plain versions, icosphere({sz.check_subdiv}), "
@@ -230,8 +301,8 @@ def phase_kernel_checks(dev, sz: Sizes, report):
     mv, proj = orbit_cameras(sz.check_views)
     s = scene_tensors(verts, faces, sz.check_views, rng, dev)
     x0, y0, pw, ph = sz.check_window
-    renderer = Renderer(mv, proj, sz.check_res, sz.check_res,
-                        config=RasterConfig(binning_capacity=1 << 16))
+    config = RasterConfig(binning_capacity=1 << 16)
+    renderer = Renderer(mv, proj, sz.check_res, sz.check_res, config=config)
     for tau in (1.0, 0.0):
         with captured_kernel_calls() as calls:
             renderer.forward(list(range(sz.check_views)), [[x0, y0]] * sz.check_views,
@@ -240,20 +311,66 @@ def phase_kernel_checks(dev, sz: Sizes, report):
             raise AssertionError("phase 2 binning truncated entries")
         check_kernels(calls, "check", report)
 
-    # The whole Renderer on the card vs the plain reference compositor.
+    # The backward kernel, from loss.backward() through render_partial with
+    # a loss on colour, depth and final_t (so g_final_t is not zero).
+    v = sz.check_views
+    weights = [torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+               for shape in ((v, ph, pw, 3), (v, ph, pw), (v, ph, pw))]
+    for tau in (1.0, 0.0):
+        p = leaves_of(s)
+        with captured_kernel_calls() as calls:
+            outs = render_partial(p["verts"], s["faces"], p["verts_color"],
+                                  p["faces_opacity"], p["faces_intense"], mv, proj,
+                                  s["background"], sz.check_res, sz.check_res, tau,
+                                  config, patch_origin=(x0, y0), patch_shape=(ph, pw))
+            sum((o * w).sum() for o, w in zip(outs[:3], weights)).backward()
+        if int(outs[3].num_truncated):
+            raise AssertionError("phase 2 binning truncated entries")
+        check_backward(calls, "check", report)
+
+    # The whole Renderer on the card vs the plain reference compositor:
+    # images, and the gradients of a weighted loss on colour and depth.
     verts, faces = icosphere(sz.small_subdiv)
+    # Off the icosphere's lattice: exact vertex-on-pixel-boundary ties are
+    # subgradient choices where analytic and autodiff gradients may differ.
+    verts = verts + np.random.default_rng(12345).normal(
+        scale=1e-3, size=verts.shape).astype(np.float32)
     mv2, proj2 = orbit_cameras(2)
     s = scene_tensors(verts, faces, 2, rng, dev)
     res = sz.small_res
-    out = {}
+    pw2, ph2 = res - 24, res - 40
+    w_c = torch.as_tensor(rng.normal(size=(2, ph2, pw2, 3)).astype(np.float32), device=dev)
+    w_d = torch.as_tensor(rng.normal(size=(2, ph2, pw2)).astype(np.float32), device=dev)
+    out, grads = {}, {}
     for use_pallas in (True, False):
         r = Renderer(mv2, proj2, res, res, config=RasterConfig(use_pallas=use_pallas))
-        out[use_pallas] = r.forward([0, 1], [[0, 0], [8, 24]], res - 24, res - 40,
-                                    *scene_args(s), aa_temperature=1.0)
+        p = leaves_of(s)
+        color, depth = r.forward([0, 1], [[0, 0], [8, 24]], pw2, ph2, p["verts"],
+                                 s["faces"], p["verts_color"], p["faces_opacity"],
+                                 p["faces_intense"], s["background"],
+                                 aa_temperature=1.0)
+        ((color * w_c).sum() + (depth * w_d).sum()).backward()
+        out[use_pallas] = (color.detach(), depth.detach())
+        grads[use_pallas] = {k: p[k].grad for k in TRAINABLE}
     err = max(float((a - b).abs().max()) for a, b in zip(out[True], out[False]))
     print(f"  Renderer (kernels) vs Renderer(use_pallas=False): max|err| {err:.3g}")
     if not err <= 2e-5:
         raise AssertionError(f"Renderer vs reference compositor: {err}")
+    # Colour, opacity and intensity gradients are sums that reassociate
+    # only: 2e-5 x scale. verts: 5e-4 x scale, the tolerance of the JAX
+    # package's analytic-vs-autodiff test on a scene jittered off the
+    # lattice, as this one is.
+    msgs = []
+    for k, tol in (("verts_color", 2e-5), ("faces_opacity", 2e-5),
+                   ("faces_intense", 2e-5), ("verts", 5e-4)):
+        a, b = grads[True][k], grads[False][k]
+        e = float((a - b).abs().max())
+        scale = max(float(b.abs().max()), 1.0)
+        msgs.append(f"{k} {e:.3g}/{scale:.3g}")
+        if not (torch.isfinite(a).all() and e <= tol * scale):
+            raise AssertionError(f"backward vs reference autograd: {k} {e} > {tol} x {scale}")
+    print("  backward (kernels) vs autograd of use_pallas=False: max|err|/scale "
+          + ", ".join(msgs))
 
 
 def headline_scene(dev, sz: Sizes):
@@ -277,20 +394,37 @@ def headline_scene(dev, sz: Sizes):
     return s, mv, proj, config
 
 
+def check_grads(params, label):
+    for k, t in params.items():
+        g = t.grad
+        if g is None or not torch.isfinite(g).all() or not bool((g != 0).any()):
+            raise AssertionError(f"{label}: gradient of {k} missing, not finite or zero")
+    print(f"  {label}: gradients finite and non-zero; max|grad| " + ", ".join(
+        f"{k} {float(t.grad.abs().max()):.4g}" for k, t in params.items()))
+
+
 def phase_main_path(dev, sz: Sizes, report, kernels):
     from dmesh2_renderer_tpu_torch import Renderer
 
-    print(f"phase 3: main path, Renderer.forward, {sz.n_faces} faces at "
-          f"{sz.width}x{sz.height}")
+    print(f"phase 3: main path, one training step (Renderer.forward + "
+          f"loss.backward()), {sz.n_faces} faces at {sz.width}x{sz.height}")
     s, mv, proj, config = headline_scene(dev, sz)
     renderer = Renderer(mv, proj, sz.width, sz.height, config=config)
-    fwd_args = ([0], [[0, 0]], sz.width, sz.height, *scene_args(s), 1.0)
+    params = leaves_of(s)
+
+    def forward(p):
+        return renderer.forward([0], [[0, 0]], sz.width, sz.height, p["verts"],
+                                s["faces"], p["verts_color"], p["faces_opacity"],
+                                p["faces_intense"], s["background"], 1.0)
+
     sync()
     for k in kernels:
         k.launches = 0
     with captured_kernel_calls() as calls:
-        color, depth = renderer.forward(*fwd_args)
+        color, depth = forward(params)
+        (color.sum() + depth.sum()).backward()
     sync()
+    color, depth = color.detach(), depth.detach()
     launches = {k.name: k.launches for k in kernels}
     aux = [int(x) for x in renderer.last_aux]
     print(f"  launches on the main path: {launches}")
@@ -311,18 +445,51 @@ def phase_main_path(dev, sz: Sizes, report, kernels):
           f"colour range [{float(color.min()):.4f}, {float(color.max()):.4f}]")
     if covered == 0:
         raise AssertionError("main path rendered only background")
+    check_grads(params, "training step")
 
-    # The kernels' outputs of that run vs their plain versions on the card,
-    # counting the compositing work these inputs need for its bound.
-    work = {}
-    check_kernels(calls, f"main {sz.width}x{sz.height}", report, work=work)
+    # The kernels' outputs of that step vs their plain versions on the card,
+    # counting the compositing work these inputs need for the bounds.
+    work, bwd_work = {}, {}
+    main_label = f"main {sz.width}x{sz.height}"
+    check_kernels(calls, main_label, report, work=work)
+    check_backward(calls, main_label, report, work=bwd_work)
 
-    # A 256x256 window of the same scene, through the same path.
+    # A 256x256 window of the same scene, through the same forward.
     x0, y0, pw, ph = sz.patch
     with captured_kernel_calls() as patch_calls:
         renderer.forward([0], [[x0, y0]], pw, ph, *scene_args(s), 1.0)
     check_kernels(patch_calls, f"patch {pw}x{ph}", report)
-    return renderer, fwd_args, calls, work
+    return renderer, s, forward, calls, work, bwd_work
+
+
+def phase_training(dev, sz: Sizes, renderer, s, forward):
+    """A few Adam steps on (verts, verts_color, faces_opacity) toward a
+    target rendered from the same scene with perturbed colours."""
+    print(f"phase 3b: {sz.adam_steps} Adam steps toward a target with "
+          "perturbed colours")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    target_colors = (s["verts_color"] + 0.2 * torch.randn(
+        s["verts_color"].shape, generator=gen, device=dev)).clamp(0.0, 1.0)
+    with torch.no_grad():
+        target, _ = forward(dict(s, verts_color=target_colors))
+    p = leaves_of(s)
+    opt = torch.optim.Adam([
+        dict(params=[p["verts"]], lr=1e-4),
+        dict(params=[p["verts_color"]], lr=1e-2),
+        dict(params=[p["faces_opacity"]], lr=1e-3),
+    ])
+    losses = []
+    for _ in range(sz.adam_steps):
+        opt.zero_grad(set_to_none=True)
+        color, _ = forward(p)
+        loss = ((color - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    print("  loss per step: " + ", ".join(f"{x:.6g}" for x in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Adam steps did not lower the loss: {losses}")
+    return losses
 
 
 def composite_bound(comp_args, work):
@@ -347,9 +514,41 @@ def composite_bound(comp_args, work):
         dict(w, bytes=nbytes, ops=ops)
 
 
-def phase_timing(dev, sz: Sizes, report, renderer, fwd_args, calls, work):
+def backward_bound(bwd_args, work):
+    """Least time for the backward compositing work these inputs need
+    (``work`` from the plain version): the contributing records walked, the
+    (R, 32) output written once, 14 floats per pixel (ray 3, cotangents 5,
+    residuals 6) and the tile arrays, against the forward's per-pair
+    operations paid again in the replay plus the gradient fields of each
+    blending pair and the block sum and epilogue of each entry."""
+    from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
+        OPS_PER_AA_GRAD_PAIR, OPS_PER_GRAD_ENTRY, OPS_PER_GRAD_PAIR)
+    from dmesh2_renderer_tpu_torch.ops.composite_fwd import (
+        OPS_PER_AA_PAIR, OPS_PER_BBOX_PAIR, OPS_PER_BLEND_PAIR, OPS_PER_PAIR)
+
+    records, counts, ray_d, tau = bwd_args[0], bwd_args[2], bwd_args[5], bwd_args[-1]
+    pw, ph = bwd_args[-3], bwd_args[-2]
+    w = {k: int(v) for k, v in work.items()}
+    n_pix = ray_d.shape[0] * ph * pw
+    nbytes = (w["records"] * 128 + records.shape[0] * 128 + n_pix * 14 * 4
+              + 3 * counts.numel() * 4)
+    aa = tau > 0
+    ops = (w["pairs"] * OPS_PER_PAIR
+           + w["bbox_pairs"] * (OPS_PER_BBOX_PAIR + (OPS_PER_AA_PAIR if aa else 0))
+           + w["blend_pairs"] * (OPS_PER_BLEND_PAIR + OPS_PER_GRAD_PAIR
+                                 + (OPS_PER_AA_GRAD_PAIR if aa else 0))
+           + w["grad_records"] * OPS_PER_GRAD_ENTRY)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
+        dict(w, bytes=nbytes, ops=ops)
+
+
+def phase_timing(dev, sz: Sizes, report, renderer, s, forward, calls, work,
+                 bwd_work):
     from dmesh2_renderer_tpu_torch.ops.binning import (
-        bin_faces, emission_keys, pack_stream, pack_stream_plain)
+        bin_faces, contributing_mask, emission_keys, pack_stream, pack_stream_plain)
+    from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
+        composite_backward, composite_backward_plain, scatter_entry_grads)
     from dmesh2_renderer_tpu_torch.ops.composite_fwd import (
         composite_forward, composite_forward_plain)
     from dmesh2_renderer_tpu_torch.ops.reference import face_depth01
@@ -357,11 +556,32 @@ def phase_timing(dev, sz: Sizes, report, renderer, fwd_args, calls, work):
 
     print(f"phase 4: timing (median of {sz.reps} after warm-up; plain versions "
           f"median of {sz.plain_reps})")
-    fwd_ms, fwd_all = time_ms(lambda: renderer.forward(*fwd_args), sz.reps, warmup=2)
+    fwd_ms, fwd_all = time_ms(lambda: forward(s), sz.reps, warmup=2)
     mpix = sz.width * sz.height / (fwd_ms * 1e3)
     print(f"  forward {sz.width}x{sz.height}: {fwd_ms:.3f} ms  ({mpix:.2f} Mpix/s); "
           f"runs {[round(t, 3) for t in fwd_all]}")
     timings = dict(forward_ms=fwd_ms, forward_runs_ms=fwd_all, mpix_per_s=mpix)
+
+    # The training step (forward + backward of color.sum() + depth.sum())
+    # and the backward alone (retained graph of one forward).
+    p = leaves_of(s)
+
+    def train_step():
+        for t in p.values():
+            t.grad = None
+        color, depth = forward(p)
+        (color.sum() + depth.sum()).backward()
+
+    step_ms, step_all = time_ms(train_step, sz.reps, warmup=2)
+    color, depth = forward(p)
+    loss = color.sum() + depth.sum()
+    bwd_ms, bwd_all = time_ms(lambda: loss.backward(retain_graph=True), sz.reps)
+    del color, depth, loss
+    print(f"  training step {sz.width}x{sz.height}: {step_ms:.3f} ms; runs "
+          f"{[round(t, 3) for t in step_all]}; backward alone {bwd_ms:.3f} ms; runs "
+          f"{[round(t, 3) for t in bwd_all]}")
+    timings.update(train_step_ms=step_ms, train_step_runs_ms=step_all,
+                   backward_ms=bwd_ms, backward_runs_ms=bwd_all)
 
     # Record pack, its plain version and the index_select yardstick, on the
     # main path's own inputs.
@@ -429,6 +649,42 @@ def phase_timing(dev, sz: Sizes, report, renderer, fwd_args, calls, work):
           f"{em.keys.numel()} int32 keys]")
     timings.update(stages_ms=stages, sort_ms=stages["sort"], sort_keys=em.keys.numel(),
                    pack_bytes=pack_bytes, records=r_entries)
+
+    # Backward compositor on the main path's own inputs.
+    bwd_args, grad_records = calls["composite_backward"]
+    cb_ms, _ = time_ms(lambda: composite_backward(*bwd_args), sz.reps)
+    cb_plain_ms, _ = time_ms(lambda: composite_backward_plain(*bwd_args),
+                             sz.plain_reps, warmup=0)
+    bound, bound_by, cb_work = backward_bound(bwd_args, bwd_work)
+    report["composite_bwd"].update(ms=cb_ms, plain_ms=cb_plain_ms, bound_ms=bound,
+                                   bound_by=bound_by, library_ms=None)
+    print(f"  composite_bwd: {cb_ms:.3f} ms, plain {cb_plain_ms:.3f} ms, "
+          f"bound {bound:.3f} ms ({bound_by}; {cb_work})")
+
+    # Where the backward's time goes: the reduction (contributing mask +
+    # index_add_ scatter) and the autograd tail (projection and AA corners
+    # back to verts) on the same inputs.
+    starts, counts, nc_tile = bwd_args[1], bwd_args[2], bwd_args[3]
+    n_verts, n_batch = verts.shape[0], inten.shape[0]
+
+    def reduce():
+        keep, _ = contributing_mask(starts, counts, nc_tile, entry_bf.shape[0])
+        return scatter_entry_grads(grad_records, entry_bf, faces, n_verts, n_batch, keep)
+
+    red_ms, _ = time_ms(reduce, sz.reps)
+    d = reduce()
+    d_vndc = torch.zeros_like(vndc)
+    d_vndc[..., 2] = d[3]
+    v_leaf = verts.clone().requires_grad_(True)
+    vndc_t, vimg_t = G.compute_verts_ndc_image(v_leaf, mv, proj, sz.width, sz.height)
+    aa_t = G.face_aa_verts_ccw(vimg_t, faces)
+    tail_ms, _ = time_ms(lambda: torch.autograd.grad(
+        (vndc_t, aa_t), v_leaf, (d_vndc, d[5]), retain_graph=True), sz.reps)
+    bwd_stages = {"composite_bwd": cb_ms, "reduction": red_ms, "autograd_tail": tail_ms}
+    bwd_stages["rest_of_backward"] = bwd_ms - sum(bwd_stages.values())
+    print("  backward stages (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in bwd_stages.items()))
+    timings.update(backward_stages_ms=bwd_stages, backward_work=cb_work)
     return timings
 
 
@@ -460,8 +716,12 @@ def main() -> int:
                            replaces=REPLACES[k.name], launches=0, max_abs_err=0.0)
               for k in _kernels.KERNELS}
     phase_kernel_checks(dev, sz, report)
-    main_state = phase_main_path(dev, sz, report, _kernels.KERNELS)
-    timings = phase_timing(dev, sz, report, *main_state)
+    renderer, s, forward, calls, work, bwd_work = phase_main_path(
+        dev, sz, report, _kernels.KERNELS)
+    losses = phase_training(dev, sz, renderer, s, forward)
+    timings = phase_timing(dev, sz, report, renderer, s, forward, calls, work,
+                           bwd_work)
+    timings.update(adam_losses=losses)
 
     kernels_line = {"kernels": [report[k.name] for k in _kernels.KERNELS]}
     os.makedirs("chiprun_out", exist_ok=True)

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of dmesh2_renderer_tpu for NVIDIA Hopper.
 
-The forward renderer: ``Renderer`` and ``functional.render``. Tile binning
-and geometry are plain PyTorch; the record pack and the tile compositor are
-hand-written CUDA kernels (``csrc/``), built with nvcc at first use. Entry
+The differentiable renderer: ``Renderer`` and ``functional.render``, forward
+and analytic backward. Tile binning, geometry and the gradient reduction are
+plain PyTorch; the record pack and the forward and backward tile
+compositors are hand-written CUDA kernels (``csrc/``), built with nvcc at
+first use. Entry
 points run on the card unless the caller passes ``device="cpu"``, which runs
 each kernel's plain PyTorch version instead.
 """

@@ -2,7 +2,8 @@
 
 The JAX package's inputs arrive as numpy arrays (``np.asarray`` of its
 arrays, or the numpy scene utilities), so both packages can compute from
-identical inputs without this package importing JAX.
+identical inputs, and differentiate the same parameters, without this
+package importing JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +39,24 @@ def scene_from_jax(arrays: dict[str, np.ndarray], device) -> dict[str, torch.Ten
         out[name] = torch.as_tensor(np.asarray(value), dtype=dtype,
                                     device=device).contiguous()
     return out
+
+
+SCENE_PARAMS = ("verts", "verts_color", "faces_opacity")
+
+
+def params_from_jax(params: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    """The JAX package's training state -> the port's trainable leaves.
+
+    ``params`` holds the ``SceneParams`` fields (``verts``, ``verts_color``,
+    ``faces_opacity``) as numpy arrays. Returns float32 leaf tensors on
+    ``device`` with ``requires_grad=True``, so that both packages
+    differentiate the same parameters. Raises ValueError on a missing or
+    extra field.
+    """
+    if set(params) != set(SCENE_PARAMS):
+        raise ValueError(f"expected the fields {SCENE_PARAMS}, got {tuple(params)}")
+    return {name: t.requires_grad_(True)
+            for name, t in scene_from_jax(params, device).items()}
 
 
 def config_from_jax(fields: dict) -> RasterConfig:

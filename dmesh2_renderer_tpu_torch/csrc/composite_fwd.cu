@@ -32,62 +32,20 @@
 // version keeps the per-face terms (edge reciprocals, cross products) in each
 // thread's arithmetic rather than precomputing them per face.
 //
-// Built with -fmad=false: every expression below is written in the operation
-// order of the plain PyTorch version (ops/composite_fwd.py), which runs one
-// rounded operation at a time, so kernel and plain version agree to the bit
-// and the clamp region codes at boundaries resolve identically.
+// Built with -fmad=false: every expression below and in pair_math.cuh (the
+// per-pair arithmetic, shared with the backward compositor composite_bwd.cu)
+// is written in the operation order of the plain PyTorch version
+// (ops/composite_fwd.py), which runs one rounded operation at a time, so
+// kernel and plain version agree to the bit and the clamp region codes at
+// boundaries resolve identically.
 
-#include <cuda_runtime.h>
+#include "pair_math.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;
-constexpr int kRec = 32;
+using namespace pair_math;
+
 constexpr int kChunk = 64;
-constexpr float kTEps = 1e-4f;
-constexpr float kAreaEps = 1e-12f;
-
-// Record layout (ops/binning.py REC_*).
-constexpr int kV = 0, kC = 9, kOp = 18, kIn = 19, kZ = 20, kAA = 23;
-
-__device__ __forceinline__ float mn(float a, float b) { return a < b ? a : b; }
-__device__ __forceinline__ float mx(float a, float b) { return a > b ? a : b; }
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return mn(mx(x, lo), hi);
-}
-
-// aa.py::_edge_area, operation for operation.
-__device__ __forceinline__ float edge_area(float xa, float ya, float xb,
-                                           float yb, float x0, float x1,
-                                           float y0, float y1) {
-  float dx = xb - xa;
-  float dy = yb - ya;
-  float dy_safe = fabsf(dy) > kAreaEps ? dy : (dy >= 0.0f ? kAreaEps : -kAreaEps);
-  float rcp_dy = 1.0f / dy_safe;
-  float ts0 = (y0 - ya) * rcp_dy;
-  float ts1 = ts0 + (y1 - y0) * rcp_dy;
-  float ta = clip(mn(ts0, ts1), 0.0f, 1.0f);
-  float tb = clip(mx(ts0, ts1), 0.0f, 1.0f);
-  tb = mx(ta, tb);
-
-  float k = xa - x0;
-  float w = x1 - x0;
-  bool big = fabsf(dx) > kAreaEps;
-  float rcp_dx = 1.0f / (big ? dx : 1.0f);
-  float tc0 = -k * rcp_dx;
-  float tc1 = tc0 + w * rcp_dx;
-  float lo = clip(mn(tc0, tc1), ta, tb);
-  float hi = clip(mx(tc0, tc1), ta, tb);
-  float vlo = clip(k + lo * dx, 0.0f, w);
-  float vhi = clip(k + hi * dx, 0.0f, w);
-  float vleft = clip(k + ta * dx, 0.0f, w);
-  float vright = clip(k + tb * dx, 0.0f, w);
-  float integral =
-      vleft * (lo - ta) + 0.5f * (vlo + vhi) * (hi - lo) + vright * (tb - hi);
-  float flat = clip(k, 0.0f, w) * (tb - ta);
-  return dy * (big ? integral : flat);
-}
 
 __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
     const float* __restrict__ records, long long n_records,
@@ -149,87 +107,18 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
       for (int j = 0; j < n; ++j) {
         if (T < kTEps) break;
         const float* rec = rec_base + j * kRec;
-        const float v0x = rec[kV + 0], v0y = rec[kV + 1], v0z = rec[kV + 2];
-        const float v1x = rec[kV + 3], v1y = rec[kV + 4], v1z = rec[kV + 5];
-        const float v2x = rec[kV + 6], v2y = rec[kV + 7], v2z = rec[kV + 8];
+        const Pair q = pair_quantities(rec, ox, oy, oz, rdx, rdy, rdz, px0,
+                                       py0, tau, one_minus_tau);
+        if (!q.passes) continue;
 
-        // Moeller-Trumbore through scalar triple products:
-        // den = rd.(e2 x e1), u_num = rd.(e2 x t0), v_num = rd.(t0 x e1).
-        const float e1x = v1x - v0x, e1y = v1y - v0y, e1z = v1z - v0z;
-        const float e2x = v2x - v0x, e2y = v2y - v0y, e2z = v2z - v0z;
-        const float t0x = ox - v0x, t0y = oy - v0y, t0z = oz - v0z;
-        const float nx = e2y * e1z - e2z * e1y;
-        const float ny = e2z * e1x - e2x * e1z;
-        const float nz = e2x * e1y - e2y * e1x;
-        const float mx_ = e2y * t0z - e2z * t0y;
-        const float my_ = e2z * t0x - e2x * t0z;
-        const float mz_ = e2x * t0y - e2y * t0x;
-        const float qx = t0y * e1z - t0z * e1y;
-        const float qy = t0z * e1x - t0x * e1z;
-        const float qz = t0x * e1y - t0y * e1x;
-        const float denom = nx * rdx + ny * rdy + nz * rdz;
-        const bool mt_ok = denom != 0.0f;
-        const float inv = 1.0f / (mt_ok ? denom : 1.0f);
-        const float u = (mx_ * rdx + my_ * rdy + mz_ * rdz) * inv;
-        const float v = (qx * rdx + qy * rdy + qz * rdz) * inv;
-
-        // 7-region clamp (geometry.py::clamp_bary_uv); tests in this order.
-        const bool inside = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
-        const bool c1 = (u <= 0.0f) && (v <= 0.0f);
-        const bool c2 = ((u >= 1.0f) && (v <= 0.0f)) || ((v >= 0.0f) && (v <= u - 1.0f));
-        const bool c3 = ((u <= 0.0f) && (v >= 1.0f)) || ((u >= 0.0f) && (v >= u + 1.0f));
-        const bool c4 = (u <= 0.0f) && (v <= 1.0f) && (v >= 0.0f);
-        const bool c5 = (u <= 1.0f) && (u >= 0.0f) && (v <= 0.0f);
-        float uc, vc;
-        if (inside) { uc = u; vc = v; }
-        else if (c1) { uc = 0.0f; vc = 0.0f; }
-        else if (c2) { uc = 1.0f; vc = 0.0f; }
-        else if (c3) { uc = 0.0f; vc = 1.0f; }
-        else if (c4) { uc = 0.0f; vc = v; }
-        else if (c5) { uc = u; vc = 0.0f; }
-        else { uc = (1.0f + u - v) * 0.5f; vc = (1.0f - u + v) * 0.5f; }
-
-        // Per-pixel face-bbox reject.
-        const float ax0 = rec[kAA + 0], ay0 = rec[kAA + 1];
-        const float ax1 = rec[kAA + 2], ay1 = rec[kAA + 3];
-        const float ax2 = rec[kAA + 4], ay2 = rec[kAA + 5];
-        const float txmin = mn(mn(ax0, ax1), ax2);
-        const float txmax = mx(mx(ax0, ax1), ax2);
-        const float tymin = mn(mn(ay0, ay1), ay2);
-        const float tymax = mx(mx(ay0, ay1), ay2);
-        const float px1 = px0 + 1.0f, py1 = py0 + 1.0f;
-        const bool bbox_ok = (px1 >= txmin) && (px0 <= txmax) &&
-                             (py1 >= tymin) && (py0 <= tymax);
-
-        const float inside_f = inside ? 1.0f : 0.0f;
-        float ratio;
-        bool aa_ok = true;
-        if (tau > 0.0f) {
-          float area = edge_area(ax0, ay0, ax1, ay1, px0, px1, py0, py1) +
-                       edge_area(ax1, ay1, ax2, ay2, px0, px1, py0, py1) +
-                       edge_area(ax2, ay2, ax0, ay0, px0, px1, py0, py1);
-          const float box = (px1 - px0) * (py1 - py0);
-          const float oarea = clip(area, 0.0f, box);
-          aa_ok = oarea > 0.0f;
-          ratio = one_minus_tau * inside_f + tau * oarea;
-        } else {
-          ratio = inside_f;
-        }
-        const bool passes = mt_ok && aa_ok && bbox_ok && (ratio != 0.0f);
-        if (!passes) continue;
-
-        const float i0 = 1.0f - uc - vc;
+        const Interp s = interpolate(rec, q.uc, q.vc);
         const float intense = rec[kIn];
-        const float m_r = i0 * rec[kC + 0] + uc * rec[kC + 3] + vc * rec[kC + 6];
-        const float m_g = i0 * rec[kC + 1] + uc * rec[kC + 4] + vc * rec[kC + 7];
-        const float m_b = i0 * rec[kC + 2] + uc * rec[kC + 5] + vc * rec[kC + 8];
-        const float i_d = i0 * rec[kZ + 0] + uc * rec[kZ + 1] + vc * rec[kZ + 2];
-        const float alpha = rec[kOp] * ratio;
+        const float alpha = rec[kOp] * q.ratio;
         const float wgt = alpha * T;
-        cr = cr + (m_r * intense) * wgt;
-        cg = cg + (m_g * intense) * wgt;
-        cb = cb + (m_b * intense) * wgt;
-        cd = cd + i_d * wgt;
+        cr = cr + (s.m_r * intense) * wgt;
+        cg = cg + (s.m_g * intense) * wgt;
+        cb = cb + (s.m_b * intense) * wgt;
+        cd = cd + s.i_d * wgt;
         pt = T;
         T = T * (1.0f - alpha);
         nc = (int)(base + j) + 1;

@@ -2,9 +2,9 @@
 
 Port of ``render_partial`` and ``render`` of
 ``dmesh2_renderer_tpu/functional.py``: rays are computed per call, so the
-whole render is a function of its inputs. Inputs may be numpy arrays or
-tensors; they are moved to ``device`` (the card unless the caller passes
-``device="cpu"``).
+whole render, and its gradient, is a function of its inputs. Inputs may be
+numpy arrays or tensors; they are moved to ``device`` (the card unless the
+caller passes ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -37,8 +37,11 @@ def render_partial(
     """Render B full-frame views, also returning the exit transmittance.
 
     Returns (color, depth_raw, final_t, aux) with ``depth_raw`` the
-    un-remapped composite. ``patch_origin=(x0, y0)`` + ``patch_shape=(ph,
-    pw)`` restrict every view to one shared window of the full frame.
+    un-remapped composite. All three images are differentiable with respect
+    to ``verts``, ``verts_color``, ``faces_opacity`` and ``faces_intense``
+    (analytic backward; a loss on ``final_t`` reaches them too).
+    ``patch_origin=(x0, y0)`` + ``patch_shape=(ph, pw)`` restrict every view
+    to one shared window of the full frame.
     """
     config = config or RasterConfig()
     if (patch_origin is None) != (patch_shape is None):

@@ -1,10 +1,15 @@
 """Camera / projection / screen-space geometry (plain PyTorch).
 
-Port of the forward half of ``dmesh2_renderer_tpu/geometry.py``: vertex
-projection, per-pixel rays, patch ray selection, the CCW screen-triangle
-precompute, Moeller-Trumbore and the 7-region barycentric clamp. Every
+Port of ``dmesh2_renderer_tpu/geometry.py``: vertex projection, per-pixel
+rays, patch ray selection, the CCW screen-triangle precompute,
+Moeller-Trumbore and the 7-region barycentric clamp, and the analytic
+Jacobians the backward compositor uses (clamp and Moeller-Trumbore). Every
 function works on tensors of any device and keeps the JAX package's
 layouts, so the tests compare like with like.
+
+The JAX package's hand-written backward of ``face_aa_verts_ccw`` exists only
+to avoid an XLA scatter on the TPU; here autograd differentiates the gather
+and the CCW swap, which gives the same gradient.
 """
 
 from __future__ import annotations
@@ -182,8 +187,8 @@ def _face_aa_verts_impl(verts_image, faces):
 def face_aa_verts_ccw(verts_image, faces):
     """CCW screen-space AA triangles (B, F, 3, 2): the rasterizer input.
 
-    The forward value of the JAX package's ``face_aa_verts_ccw``; its
-    hand-written backward comes with the port's backward pass.
+    The JAX package's ``face_aa_verts_ccw``; autograd carries its cotangent
+    back to ``verts_image`` (un-swapped, summed over incident faces).
     """
     return _face_aa_verts_impl(verts_image, faces)[0]
 
@@ -238,3 +243,63 @@ def clamp_bary_uv(u, v):
         u_c = torch.where(hit, u_sel[k], u_c)
         v_c = torch.where(hit, v_sel[k], v_c)
     return u_c, v_c, code
+
+
+def clamp_bary_uv_grad(code, dtype=torch.float32):
+    """Piecewise-constant Jacobian of the barycentric clamp, by region code.
+
+    Returns (duc_du, duc_dv, dvc_du, dvc_dv): the identity inside (code 0),
+    d/dv only on the u = 0 edge (4), d/du only on the v = 0 edge (5), the
+    diagonal projection's +-1/2 on the hypotenuse (6), zero at the corners.
+    """
+    one = torch.ones(code.shape, dtype=dtype, device=code.device)
+    zero = torch.zeros_like(one)
+    half = 0.5 * one
+    duc_du = torch.where((code == 0) | (code == 5), one,
+                         torch.where(code == 6, half, zero))
+    dvc_dv = torch.where((code == 0) | (code == 4), one,
+                         torch.where(code == 6, half, zero))
+    duc_dv = torch.where(code == 6, -half, zero)
+    dvc_du = torch.where(code == 6, -half, zero)
+    return duc_du, duc_dv, dvc_du, dvc_dv
+
+
+def ray_tri_intersection_uv_grad(ray_o, ray_d, p0, p1, p2):
+    """Analytic Jacobians d(u, v)/d(p0, p1, p2) of Moeller-Trumbore.
+
+    ``dv`` is derived from v = dot(cross(t0, e1), d) / denom, the v the
+    renderer interpolates with (the JAX package's fix of the CUDA original,
+    whose "dv" block differentiates the ray parameter t instead).
+
+    Returns 6 tensors (..., 3): du/dp0, du/dp1, du/dp2, dv/dp0, dv/dp1,
+    dv/dp2.
+    """
+    def cross(a, b):
+        return torch.linalg.cross(a, b, dim=-1)
+
+    t0 = ray_o - p0
+    e1 = p1 - p0
+    e2 = p2 - p0
+
+    rxe2 = cross(ray_d, e2)
+    denom_sqrt = torch.sum(rxe2 * e1, dim=-1, keepdim=True)
+    denom = denom_sqrt * denom_sqrt
+    denom_inv = 1.0 / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+
+    u_num = torch.sum(rxe2 * t0, dim=-1, keepdim=True)
+    v1 = denom_sqrt
+    qvec = cross(t0, e1)
+    v_num = torch.sum(qvec * ray_d, dim=-1, keepdim=True)
+    e1xd = cross(e1, ray_d)
+
+    du_de1 = (-rxe2 * u_num) * denom_inv
+    du_de2 = (cross(t0, ray_d) * v1 - u_num * e1xd) * denom_inv
+    du_dt = (rxe2 * v1) * denom_inv
+
+    dv_de1 = (cross(ray_d, t0) * v1 - v_num * rxe2) * denom_inv
+    dv_de2 = (-v_num * e1xd) * denom_inv
+    dv_dt = e1xd * v1 * denom_inv
+
+    du_dp0 = -du_de1 - du_de2 - du_dt
+    dv_dp0 = -dv_de1 - dv_de2 - dv_dt
+    return du_dp0, du_de1, du_de2, dv_dp0, dv_de1, dv_de2

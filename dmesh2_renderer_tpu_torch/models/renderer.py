@@ -1,8 +1,11 @@
-"""User-facing Renderer: the multi-view triangle renderer (forward).
+"""User-facing Renderer: the differentiable multi-view triangle renderer.
 
 Port of ``dmesh2_renderer_tpu/models/renderer.py``: hold a batch of cameras,
 precompute per-pixel rays once, and per call project vertices, build the
 screen-space AA triangles, slice patch rays, rasterize and remap depth.
+``loss.backward()`` through ``forward`` gives the JAX package's analytic
+gradients for ``verts``, ``verts_color``, ``faces_opacity`` and
+``faces_intense`` (the backward compositor kernel on the card).
 
 Differences from the JAX class:
   * ``device`` selects where it runs: ``None`` means the card (``"cuda"``),
@@ -118,9 +121,12 @@ class Renderer:
             if cap2 and int(aux.num_grad_contributing) > cap2:
                 warnings.warn(
                     f"{int(aux.num_grad_contributing)} entries contribute "
-                    f"gradients but grad_compact_capacity={cap2}: backward "
-                    "drops the excess (wrong gradients for some tiles). "
-                    "Raise RasterConfig.grad_compact_capacity.",
+                    f"gradients but grad_compact_capacity={cap2}. This "
+                    "backward reduces every contributing entry, so its "
+                    "gradients stay right; the JAX package's backward would "
+                    "drop the excess with this config and give wrong "
+                    "gradients. Raise RasterConfig.grad_compact_capacity to "
+                    "keep the config portable.",
                     RuntimeWarning,
                     stacklevel=2,
                 )

@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface. At first use
-it is compiled with ``nvcc`` for ``sm_90a`` into ``csrc/build/`` (a
-directory git ignores), under a name that hashes the source and the flags,
-and loaded with ``ctypes``. Nothing is compiled at import time, so the CPU
+Each kernel is one ``csrc/*.cu`` file with a plain C interface (the
+compositors share ``csrc/pair_math.cuh``). At first use it is compiled with
+``nvcc`` for ``sm_90a`` into ``csrc/build/`` (a directory git ignores), under
+a name that hashes the source, the shared headers and the flags, and loaded
+with ``ctypes``. Nothing is compiled at import time, so the CPU
 tests import every module without a CUDA toolchain.
 
 Each kernel object carries ``launches``, a count of its successful launches:
@@ -63,7 +64,10 @@ class Kernel:
         self._lib = None
 
     def library_path(self) -> Path:
+        # The name hashes the source, every shared header and the flags.
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -129,7 +133,20 @@ COMPOSITE_FWD = Kernel("composite_fwd", "composite_fwd.cu", [
     P,                    # stream
 ], extra_flags=("-fmad=false",))
 
-KERNELS = (PACK_STREAM, COMPOSITE_FWD)
+# composite_bwd replays composite_fwd's blend and must take its decisions bit
+# for bit: same shared header (pair_math.cuh), same flags.
+COMPOSITE_BWD = Kernel("composite_bwd", "composite_bwd.cu", [
+    P, L,                 # records, R
+    P, P, P,              # tile_starts, tile_counts, nc_tile
+    P, P, P, P,           # ray_o, ray_d, background, patch_min
+    P, P, P, P,           # color, depth, final_t, prev_t
+    P, P, P,              # g_color, g_depth, g_final_t
+    I, I, I, I, I,        # B, H, W, gx, gy
+    F, F,                 # tau, 1 - tau
+    P, P,                 # out, stream
+], extra_flags=("-fmad=false",))
+
+KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD)
 
 
 def build_all() -> None:

@@ -288,6 +288,26 @@ def bin_faces(
                    num_truncated, em.giant_ids)
 
 
+def contributing_mask(tile_starts, tile_counts, nc_tile, r: int):
+    """(R,) bool: stream positions inside some tile's contributing prefix.
+
+    ``nc_tile`` (from the forward compositor) is each tile's largest 1-based
+    rank of a face that blended into any of its pixels. Every later entry of
+    the tile has an all-zero gradient record, so the contributing set is a
+    per-tile prefix of ``min(count, nc_tile)`` entries. Built as +1 at each
+    tile start and -1 at its cut, then a cumulative sum.
+
+    Returns (keep (R,) bool, contributing count () int64).
+    """
+    counts2 = torch.minimum(tile_counts, torch.clamp(nc_tile, min=0)).long()
+    starts = tile_starts.long()
+    delta = torch.zeros((r + 1,), dtype=torch.int64, device=tile_starts.device)
+    delta.index_add_(0, starts, torch.ones_like(starts))
+    delta.index_add_(0, starts + counts2, -torch.ones_like(starts))
+    keep = torch.cumsum(delta[:r], dim=0) > 0
+    return keep, counts2.sum()
+
+
 # Face-stream record layout (FACE_RECORD_WIDTH = 32 f32 words per entry):
 #   [0:9)   v0.xyz v1.xyz v2.xyz      world-space triangle
 #   [9:18)  c0.rgb c1.rgb c2.rgb      vertex colors

@@ -10,12 +10,15 @@ largest contributor rank.
 ``composite_forward`` runs ``csrc/composite_fwd.cu`` on CUDA tensors and the
 plain version on CPU tensors. The plain version walks every tile's list in
 step, one entry per step, with all tiles' 256 pixels as (T, 256) planes; it
-repeats the kernel's arithmetic in the kernel's operation order.
+repeats the kernel's arithmetic in the kernel's operation order. Its
+per-pair arithmetic, :func:`pair_quantities`, is shared with the plain
+backward compositor, as ``csrc/pair_math.cuh`` is shared by the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -71,6 +74,98 @@ def _untile(planes, b, h, w, gx, gy):
     return x.reshape(b, gy * TILE_Y, gx * TILE_X)[:, :h, :w]
 
 
+def tile_planes(x, bt, y, xx, in_patch):
+    """(B, H, W) per-pixel values -> (T, 256) tile planes, zero outside the
+    patch (the pixel grids from :func:`tile_pixels`)."""
+    h, w = x.shape[1], x.shape[2]
+    v = x[bt[:, None], y.clamp(max=h - 1), xx.clamp(max=w - 1)]
+    return torch.where(in_patch, v, torch.zeros_like(v))
+
+
+class PairQuantities(NamedTuple):
+    """Per-(face, pixel) values of one step of the compositor walk.
+
+    Faces are (T, 1) record columns against (T, 256) pixel planes; every
+    field is a (T, 256) plane. ``passes`` is every skip test of the blend
+    rule except the transmittance test.
+    """
+
+    passes: torch.Tensor   # bool: MT valid, AA area > 0, bbox, ratio != 0
+    bbox_ok: torch.Tensor  # bool
+    u: torch.Tensor        # unclamped Moeller-Trumbore barycentrics
+    v: torch.Tensor
+    inv: torch.Tensor      # 1 / MT denominator
+    code: torch.Tensor     # int32 clamp region
+    uc: torch.Tensor       # clamped barycentrics
+    vc: torch.Tensor
+    ratio: torch.Tensor    # coverage: (1 - tau) * inside + tau * area
+    alpha: torch.Tensor    # opacity * ratio
+    m_r: torch.Tensor      # interpolated colour, before intensity
+    m_g: torch.Tensor
+    m_b: torch.Tensor
+    i_d: torch.Tensor      # interpolated NDC depth
+
+
+def pair_quantities(rec, rdx, rdy, rdz, ox, oy, oz, px0, py0, px1, py1,
+                    tau: float) -> PairQuantities:
+    """The per-pair arithmetic shared by both plain compositors, in the
+    operation order of ``csrc/pair_math.cuh``. ``rec``: (T, 32) records."""
+
+    def col(i):
+        return rec[:, i:i + 1]
+
+    v0x, v0y, v0z = col(REC_V + 0), col(REC_V + 1), col(REC_V + 2)
+    v1x, v1y, v1z = col(REC_V + 3), col(REC_V + 4), col(REC_V + 5)
+    v2x, v2y, v2z = col(REC_V + 6), col(REC_V + 7), col(REC_V + 8)
+    e1x, e1y, e1z = v1x - v0x, v1y - v0y, v1z - v0z
+    e2x, e2y, e2z = v2x - v0x, v2y - v0y, v2z - v0z
+    t0x, t0y, t0z = ox - v0x, oy - v0y, oz - v0z
+    nx = e2y * e1z - e2z * e1y
+    ny = e2z * e1x - e2x * e1z
+    nz = e2x * e1y - e2y * e1x
+    mx = e2y * t0z - e2z * t0y
+    my = e2z * t0x - e2x * t0z
+    mz = e2x * t0y - e2y * t0x
+    qx = t0y * e1z - t0z * e1y
+    qy = t0z * e1x - t0x * e1z
+    qz = t0x * e1y - t0y * e1x
+    denom = nx * rdx + ny * rdy + nz * rdz
+    mt_ok = denom != 0.0
+    inv = 1.0 / torch.where(mt_ok, denom, torch.ones_like(denom))
+    u = (mx * rdx + my * rdy + mz * rdz) * inv
+    v = (qx * rdx + qy * rdy + qz * rdz) * inv
+    uc, vc, code = clamp_bary_uv(u, v)
+    inside = (code == 0).to(torch.float32)
+
+    ax0, ay0 = col(REC_AA + 0), col(REC_AA + 1)
+    ax1, ay1 = col(REC_AA + 2), col(REC_AA + 3)
+    ax2, ay2 = col(REC_AA + 4), col(REC_AA + 5)
+    txmin = torch.minimum(torch.minimum(ax0, ax1), ax2)
+    txmax = torch.maximum(torch.maximum(ax0, ax1), ax2)
+    tymin = torch.minimum(torch.minimum(ay0, ay1), ay2)
+    tymax = torch.maximum(torch.maximum(ay0, ay1), ay2)
+    bbox_ok = (px1 >= txmin) & (px0 <= txmax) & (py1 >= tymin) & (py0 <= tymax)
+
+    if tau > 0.0:
+        oarea = tri_box_overlap_area_xy(ax0, ay0, ax1, ay1, ax2, ay2,
+                                        px0, px1, py0, py1)
+        aa_ok = oarea > 0.0
+        ratio = (1.0 - tau) * inside + tau * oarea
+    else:
+        aa_ok = torch.ones_like(mt_ok)
+        ratio = inside
+    passes = mt_ok & aa_ok & bbox_ok & (ratio != 0.0)
+
+    i0 = 1.0 - uc - vc
+    m_r = i0 * col(REC_C + 0) + uc * col(REC_C + 3) + vc * col(REC_C + 6)
+    m_g = i0 * col(REC_C + 1) + uc * col(REC_C + 4) + vc * col(REC_C + 7)
+    m_b = i0 * col(REC_C + 2) + uc * col(REC_C + 5) + vc * col(REC_C + 8)
+    i_d = i0 * col(REC_Z + 0) + uc * col(REC_Z + 1) + vc * col(REC_Z + 2)
+    alpha = col(REC_OP) * ratio
+    return PairQuantities(passes, bbox_ok, u, v, inv, code, uc, vc, ratio,
+                          alpha, m_r, m_g, m_b, i_d)
+
+
 def composite_forward_plain(records, tile_starts, tile_counts, ray_o_cam,
                             ray_d, background, patch_min, patch_width: int,
                             patch_height: int, aa_temperature: float,
@@ -90,9 +185,8 @@ def composite_forward_plain(records, tile_starts, tile_counts, ray_o_cam,
 
     bt, x, y, in_patch, px0, py0 = tile_pixels(
         b, gx, gy, patch_width, patch_height, patch_min, dev)
-    rd = ray_d[bt[:, None], y.clamp(max=h - 1), x.clamp(max=w - 1)]
-    rd = torch.where(in_patch[..., None], rd, torch.zeros_like(rd))
-    rdx, rdy, rdz = rd[..., 0], rd[..., 1], rd[..., 2]
+    rdx, rdy, rdz = (tile_planes(ray_d[..., c], bt, y, x, in_patch)
+                     for c in range(3))
     o = ray_o_cam[bt]
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     px1, py1 = px0 + 1.0, py0 + 1.0
@@ -113,71 +207,23 @@ def composite_forward_plain(records, tile_starts, tile_counts, ray_o_cam,
         if k % _EXIT_CHECK == 0 and not bool(live.any()):
             break
         rec = records[torch.clamp(starts + k, max=max(r - 1, 0))]   # (T, 32)
-
-        def col(i):
-            return rec[:, i:i + 1]
-
-        v0x, v0y, v0z = col(REC_V + 0), col(REC_V + 1), col(REC_V + 2)
-        v1x, v1y, v1z = col(REC_V + 3), col(REC_V + 4), col(REC_V + 5)
-        v2x, v2y, v2z = col(REC_V + 6), col(REC_V + 7), col(REC_V + 8)
-        e1x, e1y, e1z = v1x - v0x, v1y - v0y, v1z - v0z
-        e2x, e2y, e2z = v2x - v0x, v2y - v0y, v2z - v0z
-        t0x, t0y, t0z = ox - v0x, oy - v0y, oz - v0z
-        nx = e2y * e1z - e2z * e1y
-        ny = e2z * e1x - e2x * e1z
-        nz = e2x * e1y - e2y * e1x
-        mx = e2y * t0z - e2z * t0y
-        my = e2z * t0x - e2x * t0z
-        mz = e2x * t0y - e2y * t0x
-        qx = t0y * e1z - t0z * e1y
-        qy = t0z * e1x - t0x * e1z
-        qz = t0x * e1y - t0y * e1x
-        denom = nx * rdx + ny * rdy + nz * rdz
-        mt_ok = denom != 0.0
-        inv = 1.0 / torch.where(mt_ok, denom, torch.ones_like(denom))
-        u = (mx * rdx + my * rdy + mz * rdz) * inv
-        v = (qx * rdx + qy * rdy + qz * rdz) * inv
-        uc, vc, code = clamp_bary_uv(u, v)
-        inside = (code == 0).to(torch.float32)
-
-        ax0, ay0 = col(REC_AA + 0), col(REC_AA + 1)
-        ax1, ay1 = col(REC_AA + 2), col(REC_AA + 3)
-        ax2, ay2 = col(REC_AA + 4), col(REC_AA + 5)
-        txmin = torch.minimum(torch.minimum(ax0, ax1), ax2)
-        txmax = torch.maximum(torch.maximum(ax0, ax1), ax2)
-        tymin = torch.minimum(torch.minimum(ay0, ay1), ay2)
-        tymax = torch.maximum(torch.maximum(ay0, ay1), ay2)
-        bbox_ok = (px1 >= txmin) & (px0 <= txmax) & (py1 >= tymin) & (py0 <= tymax)
-
-        if tau > 0.0:
-            oarea = tri_box_overlap_area_xy(ax0, ay0, ax1, ay1, ax2, ay2,
-                                            px0, px1, py0, py1)
-            aa_ok = oarea > 0.0
-            ratio = (1.0 - tau) * inside + tau * oarea
-        else:
-            aa_ok = torch.ones_like(mt_ok)
-            ratio = inside
-        blend = live & mt_ok & aa_ok & bbox_ok & (ratio != 0.0)
+        q = pair_quantities(rec, rdx, rdy, rdz, ox, oy, oz, px0, py0, px1,
+                            py1, tau)
+        blend = live & q.passes
         if work is not None:
             work["records"] += live.any(dim=1).sum()
             work["pairs"] += live.sum()
-            work["bbox_pairs"] += (live & bbox_ok).sum()
+            work["bbox_pairs"] += (live & q.bbox_ok).sum()
             work["blend_pairs"] += blend.sum()
 
-        i0 = 1.0 - uc - vc
-        intense = col(REC_IN)
-        m_r = i0 * col(REC_C + 0) + uc * col(REC_C + 3) + vc * col(REC_C + 6)
-        m_g = i0 * col(REC_C + 1) + uc * col(REC_C + 4) + vc * col(REC_C + 7)
-        m_b = i0 * col(REC_C + 2) + uc * col(REC_C + 5) + vc * col(REC_C + 8)
-        i_d = i0 * col(REC_Z + 0) + uc * col(REC_Z + 1) + vc * col(REC_Z + 2)
-        alpha = col(REC_OP) * ratio
-        wgt = alpha * t_run
-        cr = torch.where(blend, cr + (m_r * intense) * wgt, cr)
-        cg = torch.where(blend, cg + (m_g * intense) * wgt, cg)
-        cb = torch.where(blend, cb + (m_b * intense) * wgt, cb)
-        cd = torch.where(blend, cd + i_d * wgt, cd)
+        intense = rec[:, REC_IN:REC_IN + 1]
+        wgt = q.alpha * t_run
+        cr = torch.where(blend, cr + (q.m_r * intense) * wgt, cr)
+        cg = torch.where(blend, cg + (q.m_g * intense) * wgt, cg)
+        cb = torch.where(blend, cb + (q.m_b * intense) * wgt, cb)
+        cd = torch.where(blend, cd + q.i_d * wgt, cd)
         pt = torch.where(blend, t_run, pt)
-        t_run = torch.where(blend, t_run * (1.0 - alpha), t_run)
+        t_run = torch.where(blend, t_run * (1.0 - q.alpha), t_run)
         nc = torch.where(blend, torch.full_like(nc, k + 1), nc)
 
     def out(p):

@@ -40,6 +40,8 @@ DEFAULT_FACE_CHUNK = STREAM_BLOCK
 
 # Width of one face record in the packed per-entry stream (f32 words).
 FACE_RECORD_WIDTH = 32
+# Width of one per-entry gradient record of the backward compositor.
+GRAD_RECORD_WIDTH = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,21 +53,24 @@ class RasterConfig:
     * ``binning_capacity``, ``max_tiles_per_face``, ``num_giant_faces``,
       ``giant_tiles``, ``exact_tile_cull``: static-capacity tile binning,
       identical to the JAX package (same entries, same truncation count).
-    * ``use_pallas``: True runs the hand-written CUDA kernels (on CUDA
-      tensors; their plain PyTorch versions on CPU tensors). False is the
-      caller's explicit request for the plain reference compositor
-      (``ops/reference.py``), with no binning at all.
+    * ``use_pallas``: True runs the hand-written CUDA kernels, forward and
+      backward (on CUDA tensors; their plain PyTorch versions on CPU
+      tensors), with the analytic backward. False is the caller's explicit
+      request for the plain reference compositor (``ops/reference.py``),
+      with no binning at all, differentiated by autograd.
     * ``max_vertex_valence``: the valence guard of the eager entry points
       (``utils/validate.py``), which always runs in the port.
     * ``grad_compact_capacity``: ``Renderer.forward`` warns when the
-      forward's contributing-entry count exceeds it.
+      forward's contributing-entry count exceeds it, because the JAX
+      package's backward would then drop entries. The port's backward
+      reduces every contributing entry whatever this field says.
     * ``warn_on_overflow``: ``Renderer.forward`` warns on truncation.
 
     Fields that only tune the TPU kernels of the JAX package and do nothing
-    here (accepted and validated so that callers' code carries across):
-    ``face_chunk``, ``fwd_subchunks``, ``bwd_subchunks``, ``prep_mode``,
-    ``grad_sort_mode``, ``grad_sort_split``, ``vertex_sort_mode`` and
-    ``interpret``.
+    here, in the forward or in the backward (accepted and validated so that
+    callers' code carries across): ``face_chunk``, ``fwd_subchunks``,
+    ``bwd_subchunks``, ``prep_mode``, ``grad_sort_mode``,
+    ``grad_sort_split``, ``vertex_sort_mode`` and ``interpret``.
     """
 
     binning_capacity: int = DEFAULT_BINNING_CAPACITY

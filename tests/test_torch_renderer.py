@@ -159,12 +159,31 @@ def test_without_cuda_the_default_device_raises(monkeypatch):
 
 def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     """A tensor that is neither on the CPU nor on a CUDA device is refused,
-    not sent to a plain version."""
+    not sent to a plain version; a CPU tensor takes the plain version."""
     from dmesh2_renderer_tpu_torch.ops.binning import pack_stream
+    from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
+        composite_backward, composite_backward_plain)
     from dmesh2_renderer_tpu_torch.ops.composite_fwd import composite_forward
 
     def meta(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="meta")
+
+    def bwd_args(make):
+        i32 = dict(dtype=torch.int32)
+        return (make(128, 32), make(4, **i32), make(4, **i32), make(4, **i32),
+                make(1, 3), make(1, 32, 32, 3), make(3), make(1, 2, **i32),
+                make(1, 32, 32, 3), make(1, 32, 32), make(1, 32, 32),
+                make(1, 32, 32), make(1, 32, 32, 3), make(1, 32, 32),
+                make(1, 32, 32), 32, 32, 1.0)
+
+    with pytest.raises(ValueError, match="CUDA"):
+        composite_backward(*bwd_args(meta))
+
+    def cpu(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype)
+
+    args = bwd_args(cpu)
+    assert torch.equal(composite_backward(*args), composite_backward_plain(*args))
 
     with pytest.raises(ValueError, match="CUDA"):
         composite_forward(meta(128, 32), meta(4, dtype=torch.int32),
