@@ -22,6 +22,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Moeller-Trumbore and AA columns. The whole Renderer on the card is also
    held against the plain reference compositor (``use_pallas=False``) on a
    small scene: images, and the gradients autograd takes through it.
+2b. The peel kernel against its plain version (layers and counts exactly
+   equal) on the inputs ``LayeredRenderer.generate`` gives it: the JAX
+   package's layered benchmark config (tet_grid(6), 512x512, 8 layers) and
+   tet_grid(2) with a third of the faces deleted, 2 views, a ragged 100x84
+   frame, 3 and 8 layers; there the card's LayeredRenderer is also held
+   against the numpy brute force of tests/test_peel.py (under 1% of pixels
+   may differ).
 3. The main path at full size: one training step, ``Renderer.forward`` on
    the 1M-triangle soup at 1920x1080 (the JAX package's headline scene) and
    ``loss.backward()`` of ``color.sum() + depth.sum()``, with every kernel
@@ -40,6 +47,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    forward (projection, depth/cull, binning and its sort, pack, composite)
    and of the backward (composite_bwd, the gradient reduction, the
    autograd tail through the projection and the AA corners).
+5. The layered main path at full size: ``LayeredRenderer.generate`` on
+   tet_grid(32) (399,360 faces, a seeded half existing), 2 views at
+   1920x1080, 8 layers, with every launch count set to 0 just before and
+   read just after; the peel must have launched, nothing may be truncated,
+   ``counts.max()`` must be 8 and every layer id -1 or an existing face.
+   72 sampled pixels must equal the numpy brute force on the port's own
+   rays (except at an exact t tie) with non-decreasing t along the layers,
+   and the kernel must equal its plain version on every 63rd tile, also
+   when run on those tiles alone.
+6. Layered timing: ``generate`` and Mpix/s, its stages (projection, min
+   depth, binning, peel), the peel kernel beside its bound (operations and
+   hits counted by the plain version over every tile, which is also held
+   against the kernel there) and beside its plain version, over every tile
+   and on the sampled tiles.
 
 The next-to-last lines are the ``{"kernels": [...]}`` JSON line and the
 card's ``nvidia-smi`` name and power limit; the last line is the
@@ -71,7 +92,11 @@ REPLACES = {
     "pack_stream": "dmesh2_renderer_tpu/ops/binning.py:58",
     "composite_fwd": "dmesh2_renderer_tpu/ops/pallas_fwd.py:254",
     "composite_bwd": "dmesh2_renderer_tpu/ops/pallas_bwd.py:62",
+    "peel": "dmesh2_renderer_tpu/ops/peel.py:84",
 }
+# The kernels of each main path: the training step, and the layered peel.
+TRAINING_KERNELS = ("pack_stream", "composite_fwd", "composite_bwd")
+LAYERED_KERNELS = ("peel",)
 
 KERNEL_TOL = 1e-5          # colour, depth, final_t, prev_t: kernel vs plain
 COUNT_MISMATCH_FRAC = 1e-4  # n_contrib / nc_tile mismatches allowed
@@ -104,6 +129,28 @@ class Sizes:
     reps: int = 10
     plain_reps: int = 3
     adam_steps: int = 5
+    # Layered path. Check scenes: the JAX package's layered benchmark
+    # config (benchmarks/run.py config 3, whose default max_tiles_per_face
+    # truncates a few entries, in the JAX package too) and a small ragged
+    # scene with a third of the faces deleted, also held against the numpy
+    # brute force.
+    peel_res: int = 6
+    peel_hw: int = 512
+    peel_capacity: int = 1 << 19
+    peel_small_frame: tuple = (100, 84)             # width, height (ragged)
+    peel_small_layers: tuple = (3, 8)
+    # Main layered path: tet_grid(32) (35,937 vertices, 399,360 faces), two
+    # views at width x height, 8 layers, binning sized so nothing is cut.
+    layered_res: int = 32
+    layered_views: int = 2
+    layered_layers: int = 8
+    layered_capacity: int = 9 << 20
+    layered_max_tiles: int = 32
+    layered_giant_faces: int = 8192
+    layered_giant_tiles: int = 32
+    layered_exist_frac: float = 0.5
+    layered_tile_stride: int = 63                   # every 63rd tile: >= 256 of 16,320
+    layered_pixels: int = 64
 
 
 def nvidia_smi_line() -> str:
@@ -158,21 +205,22 @@ def scene_args(s):
 
 
 @contextlib.contextmanager
-def captured_kernel_calls():
+def captured_kernel_calls(module=None, names=("pack_stream", "composite_forward",
+                                              "composite_backward")):
     """Record the arguments and the result of each kernel wrapper as the
-    main path calls it (``pack_stream``, ``composite_forward`` and
-    ``composite_backward``, looked up in ``ops/rasterize.py``), so that the
-    checks and the timings run on exactly what the forward and the backward
-    fed the kernels.
+    main path calls it (by default ``pack_stream``, ``composite_forward``
+    and ``composite_backward``, looked up in ``ops/rasterize.py``; the
+    layered path's ``peel_layers`` is looked up in ``functional.py``), so
+    that the checks and the timings run on exactly what the main path fed
+    the kernels.
 
     Yields a dict: wrapper name -> (positional args, result) of its last call.
     """
-    from dmesh2_renderer_tpu_torch.ops import rasterize
+    if module is None:
+        from dmesh2_renderer_tpu_torch.ops import rasterize as module
 
     calls = {}
-    originals = {name: getattr(rasterize, name)
-                 for name in ("pack_stream", "composite_forward",
-                              "composite_backward")}
+    originals = {name: getattr(module, name) for name in names}
 
     def detached(xs):
         return tuple(x.detach() if isinstance(x, torch.Tensor) else x for x in xs)
@@ -186,12 +234,12 @@ def captured_kernel_calls():
         return call
 
     for name, fn in originals.items():
-        setattr(rasterize, name, recording(name, fn))
+        setattr(module, name, recording(name, fn))
     try:
         yield calls
     finally:
         for name, fn in originals.items():
-            setattr(rasterize, name, fn)
+            setattr(module, name, fn)
 
 
 def compare_composite(kernel_out, plain_out, label):
@@ -430,10 +478,7 @@ def phase_main_path(dev, sz: Sizes, report, kernels):
     print(f"  launches on the main path: {launches}")
     print(f"  aux: num_rendered={aux[0]} num_truncated={aux[1]} "
           f"num_grad_contributing={aux[2]}")
-    for name, n in launches.items():
-        report[name]["launches"] = n
-        if n < 1:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    record_launches(report, launches, TRAINING_KERNELS, "training step")
     if not (torch.isfinite(color).all() and torch.isfinite(depth).all()):
         raise AssertionError("main path output is not finite")
     if tuple(color.shape) != (1, sz.height, sz.width, 3):
@@ -460,6 +505,14 @@ def phase_main_path(dev, sz: Sizes, report, kernels):
         renderer.forward([0], [[x0, y0]], pw, ph, *scene_args(s), 1.0)
     check_kernels(patch_calls, f"patch {pw}x{ph}", report)
     return renderer, s, forward, calls, work, bwd_work
+
+
+def record_launches(report, launches, path_kernels, label):
+    """Keep each path kernel's launch count; raise if one did not launch."""
+    for name in path_kernels:
+        report[name]["launches"] = launches[name]
+        if launches[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
 
 
 def phase_training(dev, sz: Sizes, renderer, s, forward):
@@ -688,6 +741,323 @@ def phase_timing(dev, sz: Sizes, report, renderer, s, forward, calls, work,
     return timings
 
 
+def brute_force_layers(verts, faces, exist, ray_o, ray_d, num_layers, pixels):
+    """The numpy oracle of tests/test_peel.py for the (y, x) ``pixels`` of
+    one view: every existing face against the ray in float32, the first L
+    hits by t (a stable sort: equal t in face-id order).
+
+    Returns (layers (n, L) int32, counts (n,) int32, tie (n,) bool), ``tie``
+    marking pixels where two of the first L + 1 hits share one t: there the
+    peel's tie rule (one layer, the larger id, inside one 128-entry block)
+    may order or merge them differently.
+    """
+    v = verts[faces].astype(np.float32)
+    e1 = v[:, 1] - v[:, 0]
+    e2 = v[:, 2] - v[:, 0]
+    t0 = ray_o - v[:, 0]
+    qv = np.cross(t0, e1)
+    qe2 = (qv * e2).sum(1)
+    n = len(pixels)
+    layers = np.full((n, num_layers), -1, np.int32)
+    counts = np.zeros(n, np.int32)
+    tie = np.zeros(n, bool)
+    for i, (y, x) in enumerate(pixels):
+        rd = ray_d[y, x]
+        pv = np.cross(np.broadcast_to(rd, e2.shape), e2)
+        den = (pv * e1).sum(1)
+        ok = den != 0
+        inv = np.where(ok, 1.0 / np.where(ok, den, 1.0), 0.0).astype(np.float32)
+        tt = (qe2 * inv).astype(np.float32)
+        u = ((pv * t0).sum(1) * inv).astype(np.float32)
+        vv = ((qv * rd).sum(1) * inv).astype(np.float32)
+        hit = ok & (tt >= 0) & (u >= 0) & (vv >= 0) & (u + vv <= 1) & (exist > 0)
+        ids = np.nonzero(hit)[0]
+        order = ids[np.argsort(tt[ids], kind="stable")]
+        layers[i, :min(len(order), num_layers)] = order[:num_layers]
+        counts[i] = min(len(order), num_layers)
+        ts = tt[order[:num_layers + 1]]
+        tie[i] = len(np.unique(ts)) < len(ts)
+    return layers, counts, tie
+
+
+def ray_t(verts, faces, ray_o, rd, ids):
+    """Moeller-Trumbore t of the ray ``rd`` with each face of ``ids``, in
+    the float32 arithmetic of :func:`brute_force_layers`."""
+    v = verts[faces[ids]].astype(np.float32)
+    e1, e2, t0 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0], ray_o - v[:, 0]
+    pv = np.cross(np.broadcast_to(rd, e2.shape), e2)
+    inv = (1.0 / (pv * e1).sum(1)).astype(np.float32)
+    return ((np.cross(t0, e1) * e2).sum(1) * inv).astype(np.float32)
+
+
+def compare_peel(kernel_out, plain_out, label, report, pixels=None):
+    """Layers and counts of the peel kernel must equal its plain version's
+    (on the ``pixels`` mask when given); raises otherwise."""
+    (kl, kc), (pl_, pc) = kernel_out, plain_out
+    if pixels is not None:
+        kl, kc, pl_, pc = kl[pixels], kc[pixels], pl_[pixels], pc[pixels]
+    bad_l = int((kl != pl_).any(dim=-1).sum())
+    bad_c = int((kc != pc).sum())
+    print(f"  {label}: peel vs plain on {kc.numel()} pixels: {bad_l} differ in "
+          f"layers, {bad_c} in counts; max count {int(kc.max()) if kc.numel() else 0}")
+    if bad_l or bad_c:
+        raise AssertionError(f"{label}: peel kernel differs from its plain version")
+    report["peel"]["max_abs_err"] = max(report["peel"]["max_abs_err"], 0.0)
+
+
+def peel_generate(lr, idx, scene, num_layers, label, report,
+                  may_truncate=False):
+    """``LayeredRenderer.generate`` on the card, recording the peel
+    wrapper's call, with the kernel's output held against its plain
+    version on the same inputs. Raises on truncated binning unless
+    ``may_truncate``. Returns (layers, counts, peel call)."""
+    from dmesh2_renderer_tpu_torch import functional
+    from dmesh2_renderer_tpu_torch.ops.peel import peel_layers_plain
+
+    with captured_kernel_calls(functional, ("peel_layers",)) as calls:
+        layers, counts = lr.generate(idx, *scene, num_layers)
+    truncated = int(lr.last_aux[1])
+    if truncated and not may_truncate:
+        raise AssertionError(f"{label}: binning truncated {truncated} entries")
+    args, out = calls["peel_layers"]
+    compare_peel(out, peel_layers_plain(*args), f"{label} L={num_layers}", report)
+    return layers, counts, calls["peel_layers"]
+
+
+def phase_layered_checks(dev, sz: Sizes, report):
+    from dmesh2_renderer_tpu_torch import LayeredRenderer, RasterConfig
+    from dmesh2_renderer_tpu_torch.utils.meshes import orbit_cameras, tet_grid
+
+    print(f"phase 2b: peel kernel vs plain version, tet_grid({sz.peel_res}) at "
+          f"{sz.peel_hw}^2 and tet_grid(2) at {sz.peel_small_frame} (ragged); "
+          "layered renderer vs the numpy brute force")
+    verts, tets, faces, face_tets, tet_faces = tet_grid(sz.peel_res)
+    exist = np.ones(faces.shape[0], np.int32)
+    mv, proj = orbit_cameras(1)
+    lr = LayeredRenderer(mv, proj, sz.peel_hw, sz.peel_hw,
+                         config=RasterConfig(binning_capacity=sz.peel_capacity))
+    peel_generate(lr, [0], (verts, faces, tets, face_tets, tet_faces, exist), 8,
+                  f"tet_grid({sz.peel_res}) {sz.peel_hw}^2", report, may_truncate=True)
+    print(f"  (binning of that config: num_rendered={int(lr.last_aux[0])}, "
+          f"num_truncated={int(lr.last_aux[1])})")
+
+    verts, tets, faces, face_tets, tet_faces = tet_grid(2)
+    exist = np.ones(faces.shape[0], np.int32)
+    exist[::3] = 0
+    mv, proj = orbit_cameras(2)
+    w, h = sz.peel_small_frame
+    lr = LayeredRenderer(mv, proj, w, h, config=RasterConfig(binning_capacity=1 << 13))
+    scene = (verts, faces, tets, face_tets, tet_faces, exist)
+    pixels = [(y, x) for y in range(h) for x in range(w)]
+    ray_d = lr.ray_d.cpu().numpy()
+    ray_o = lr.ray_o[:, 0, 0].cpu().numpy()
+    for num_layers in sz.peel_small_layers:
+        layers, counts, _ = peel_generate(lr, [0, 1], scene, num_layers,
+                                          f"tet_grid(2) {w}x{h}", report)
+        layers, counts = layers.cpu().numpy(), counts.cpu().numpy()
+        for view in range(2):
+            ref_l, ref_c, _ = brute_force_layers(verts, faces, exist, ray_o[view],
+                                                 ray_d[view], num_layers, pixels)
+            bad = ((layers[view].reshape(-1, num_layers) != ref_l).any(axis=1)
+                   | (counts[view].reshape(-1) != ref_c))
+            print(f"  LayeredRenderer vs brute force, L={num_layers}, view {view}: "
+                  f"{int(bad.sum())} of {bad.size} pixels differ")
+            if not bad.mean() < 0.01 or counts.max() == 0:
+                raise AssertionError("LayeredRenderer differs from the brute force")
+
+
+def layered_scene(sz: Sizes):
+    from dmesh2_renderer_tpu_torch import RasterConfig
+    from dmesh2_renderer_tpu_torch.utils.meshes import orbit_cameras, tet_grid
+
+    verts, tets, faces, face_tets, tet_faces = tet_grid(sz.layered_res)
+    exist = (np.random.default_rng(3).uniform(size=faces.shape[0])
+             < sz.layered_exist_frac).astype(np.int32)
+    mv, proj = orbit_cameras(sz.layered_views)
+    config = RasterConfig(binning_capacity=sz.layered_capacity,
+                          max_tiles_per_face=sz.layered_max_tiles,
+                          num_giant_faces=sz.layered_giant_faces,
+                          giant_tiles=sz.layered_giant_tiles)
+    return (verts, faces, tets, face_tets, tet_faces, exist), mv, proj, config
+
+
+def phase_layered_main(dev, sz: Sizes, report, kernels):
+    """The layered main path: one LayeredRenderer.generate at full size."""
+    from dmesh2_renderer_tpu_torch import LayeredRenderer
+    from dmesh2_renderer_tpu_torch.ops.peel import peel_layers, peel_layers_plain
+
+    scene, mv, proj, config = layered_scene(sz)
+    verts, faces, exist = scene[0], scene[1], scene[5]
+    n_views, w, h, n_layers = sz.layered_views, sz.width, sz.height, sz.layered_layers
+    print(f"phase 5: layered main path, LayeredRenderer.generate on "
+          f"tet_grid({sz.layered_res}) ({verts.shape[0]} vertices, "
+          f"{faces.shape[0]} faces, {int(exist.sum())} existing), {n_views} views at "
+          f"{w}x{h}, {n_layers} layers")
+    lr = LayeredRenderer(mv, proj, w, h, config=config)
+    idx = list(range(n_views))
+    scene_t = tuple(torch.as_tensor(x, device=dev) for x in scene)
+    sync()
+    for k in kernels:
+        k.launches = 0
+    layers, counts, peel_call = peel_generate(lr, idx, scene_t, n_layers,
+                                              f"main {w}x{h}", report)
+    sync()
+    launches = {k.name: k.launches for k in kernels}
+    nr, nt = (int(x) for x in lr.last_aux)
+    print(f"  launches on the layered path: {launches}")
+    print(f"  aux: num_rendered={nr} num_truncated={nt}")
+    record_launches(report, launches, LAYERED_KERNELS, "layered")
+    if tuple(layers.shape) != (n_views, h, w, n_layers) or nt != 0:
+        raise AssertionError(f"layered output {tuple(layers.shape)}, truncated {nt}")
+    cmax = int(counts.max())
+    exist_t = torch.as_tensor(exist, device=dev)
+    slot = torch.arange(n_layers, device=dev)
+    ids_ok = torch.where(layers >= 0, exist_t[layers.clamp(min=0).long()] > 0,
+                         layers == -1).all()
+    prefix_ok = ((layers >= 0) == (slot < counts[..., None])).all()
+    covered = int((counts > 0).sum())
+    print(f"  counts.max() {cmax}; pixels with a layer {covered} of {counts.numel()}; "
+          f"ids existing or -1: {bool(ids_ok)}; layers a -1-padded prefix: {bool(prefix_ok)}")
+    if cmax != n_layers or not bool(ids_ok) or not bool(prefix_ok):
+        raise AssertionError("layered output fails its contract")
+
+    # Sampled pixels vs the numpy brute force on the port's own rays, and
+    # the t of their layers recomputed: non-decreasing.
+    rng = np.random.default_rng(11)
+    cnt_np = counts.cpu().numpy()
+    hit_pix = np.argwhere(cnt_np > 0)
+    sample = hit_pix[rng.choice(len(hit_pix), sz.layered_pixels, replace=False)]
+    sample = np.concatenate([sample, np.stack([
+        rng.integers(0, n_views, 8), rng.integers(0, h, 8), rng.integers(0, w, 8)], 1)])
+    lay_np = layers.cpu().numpy()
+    ray_o = lr.ray_o[:, 0, 0].cpu().numpy()
+    ties = bad = 0
+    for view in range(n_views):
+        pix = sample[sample[:, 0] == view][:, 1:]
+        ray_d = lr.ray_d[view][tuple(torch.as_tensor(pix.T, device=dev))].cpu().numpy()
+        ref_l, ref_c, tie = brute_force_layers(
+            verts, faces, exist, ray_o[view], ray_d[:, None, :], n_layers,
+            [(i, 0) for i in range(len(pix))])
+        for i, (y, x) in enumerate(pix):
+            got = lay_np[view, y, x]
+            if not (np.array_equal(got, ref_l[i]) and cnt_np[view, y, x] == ref_c[i]):
+                ties += int(tie[i])
+                bad += int(not tie[i])
+            ids = got[got >= 0]
+            if len(ids) and not (np.diff(ray_t(verts, faces, ray_o[view], ray_d[i],
+                                               ids)) >= 0).all():
+                raise AssertionError(f"layers of pixel {(view, y, x)} are not in t order")
+    print(f"  {len(sample)} sampled pixels vs the brute force: {bad} differ, "
+          f"{ties} more differ at an exact t tie; layer t non-decreasing")
+    if bad:
+        raise AssertionError("layered output differs from the brute force")
+
+    # The kernel vs its plain version on every sz.layered_tile_stride-th
+    # tile, and the kernel restricted to those tiles vs its full run.
+    args = peel_call[0]
+    n_tiles = args[4].shape[0]
+    tiles = torch.arange(0, n_tiles, sz.layered_tile_stride, dtype=torch.int32,
+                         device=dev)
+    mask = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+    mask[tiles.long()] = True
+    gx, gy = -(-w // 16), -(-h // 16)
+    mask = (mask.reshape(n_views, gy, gx).repeat_interleave(16, 1)
+            .repeat_interleave(16, 2)[:, :h, :w])
+    plain = peel_layers_plain(*args, tiles=tiles)
+    compare_peel(peel_call[1], plain, f"main {w}x{h}, {tiles.numel()} sampled tiles",
+                 report, pixels=mask)
+    sub = peel_layers(*args, tiles=tiles)
+    compare_peel(sub, plain, f"main {w}x{h}, kernel on the sampled tiles only",
+                 report)
+    return lr, scene_t, idx, peel_call, tiles
+
+
+def peel_bound(args, work, n_slots):
+    """Least time for the peel of these inputs (``work`` from the plain
+    version): entry_bf of every walked entry, the face tables, the tile
+    ranges and rays read once, layers and counts written once; against the
+    per-entry, per-pair and per-hit float operations of csrc/peel.cu."""
+    from dmesh2_renderer_tpu_torch.ops.peel import (
+        OPS_PER_ENTRY, OPS_PER_HIT_SLOT, OPS_PER_PAIR)
+
+    _, faces, verts, exist, starts, counts, ray_o, ray_d, _, _, n_layers = args
+    w = {k: int(v) for k, v in work.items()}
+    n_pix = ray_d.numel() // 3
+    nbytes = (int(counts.sum()) * 4 + faces.numel() * 4 + verts.numel() * 4
+              + exist.numel() * 4 + (starts.numel() + counts.numel()) * 4
+              + ray_o.numel() * 4 + ray_d.numel() * 4 + n_pix * (n_layers + 1) * 4)
+    ops = (w["entries"] * OPS_PER_ENTRY + w["pairs"] * OPS_PER_PAIR
+           + w["hits"] * OPS_PER_HIT_SLOT * n_slots)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
+        dict(w, bytes=nbytes, ops=ops)
+
+
+def phase_layered_timing(dev, sz: Sizes, report, lr, scene, idx, peel_call, tiles):
+    from dmesh2_renderer_tpu_torch import geometry as G
+    from dmesh2_renderer_tpu_torch.ops.binning import bin_faces
+    from dmesh2_renderer_tpu_torch.ops.peel import (
+        pack_peel_stream, peel_instance, peel_layers, peel_layers_plain)
+    from dmesh2_renderer_tpu_torch.ops.reference import face_depth01
+
+    w, h, n_layers = sz.width, sz.height, sz.layered_layers
+    n_pix = len(idx) * w * h
+    print(f"phase 6: layered timing (median of {sz.reps} after warm-up)")
+    gen_ms, gen_all = time_ms(lambda: lr.generate(idx, *scene, n_layers), sz.reps,
+                              warmup=2)
+    mpix = n_pix / (gen_ms * 1e3)
+    print(f"  LayeredRenderer.generate, {len(idx)} views at {w}x{h}, L={n_layers}: "
+          f"{gen_ms:.3f} ms ({mpix:.2f} Mpix/s); runs {[round(t, 3) for t in gen_all]}")
+
+    args = peel_call[0]
+    entry_bf, faces, verts, exist = args[:4]
+    peel_ms, _ = time_ms(lambda: peel_layers(*args), sz.reps)
+    sub_ms, _ = time_ms(lambda: peel_layers(*args, tiles=tiles), sz.reps)
+    sub_plain_ms, _ = time_ms(lambda: peel_layers_plain(*args, tiles=tiles), 1)
+    plain_ms, _ = time_ms(lambda: peel_layers_plain(*args), 1, warmup=0)
+    work = {}
+    plain_full = peel_layers_plain(*args, work=work)
+    compare_peel(peel_call[1], plain_full, f"main {w}x{h}, every tile", report)
+    bound, bound_by, peel_work = peel_bound(args, work, peel_instance(n_layers))
+    report["peel"].update(ms=peel_ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=bound_by, library_ms=None)
+    print(f"  peel: {peel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+          f"({bound_by}; {peel_work}); on the {tiles.numel()} sampled tiles: kernel "
+          f"{sub_ms:.3f} ms, plain {sub_plain_ms:.3f} ms")
+
+    # Where generate's time goes: each stage at the main path's inputs.
+    b_mv, b_proj = lr.mv[idx], lr.proj[idx]
+    vndc, vimg = G.compute_verts_ndc_image(verts, b_mv, b_proj, w, h)
+    tris = G.face_aa_verts_ccw(vimg, faces)
+    _, min_depth, _, alive = face_depth01(vndc, faces)
+    config = lr.config
+    pm = torch.zeros((len(idx), 2), dtype=torch.int32, device=dev)
+
+    def binning():
+        return bin_faces(tris, min_depth, alive, pm, w, h, config.binning_capacity,
+                         config.max_tiles_per_face,
+                         num_giant_faces=config.num_giant_faces,
+                         giant_tiles=config.giant_tiles)
+
+    stages = {
+        "project_triangles": time_ms(lambda: G.face_aa_verts_ccw(
+            G.compute_verts_ndc_image(verts, b_mv, b_proj, w, h)[1], faces), sz.reps)[0],
+        "depth_cull": time_ms(lambda: face_depth01(vndc, faces), sz.reps)[0],
+        "bin_faces": time_ms(binning, sz.reps)[0],
+        "peel": peel_ms,
+    }
+    stages["rest_of_generate"] = gen_ms - sum(stages.values())
+    pack_ms, _ = time_ms(lambda: pack_peel_stream(entry_bf, verts, faces, exist),
+                         sz.reps)
+    print("  stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"  [the peel gathers its face records inside the kernel; the plain "
+          f"version's (R, 16) table, pack_peel_stream, would take {pack_ms:.3f} ms]")
+    return dict(generate_ms=gen_ms, generate_runs_ms=gen_all, generate_mpix_per_s=mpix,
+                layered_stages_ms=stages, peel_pack_ms=pack_ms, peel_work=peel_work,
+                peel_sampled_tiles=tiles.numel(), peel_sampled_ms=sub_ms,
+                peel_sampled_plain_ms=sub_plain_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -716,12 +1086,17 @@ def main() -> int:
                            replaces=REPLACES[k.name], launches=0, max_abs_err=0.0)
               for k in _kernels.KERNELS}
     phase_kernel_checks(dev, sz, report)
+    phase_layered_checks(dev, sz, report)
     renderer, s, forward, calls, work, bwd_work = phase_main_path(
         dev, sz, report, _kernels.KERNELS)
     losses = phase_training(dev, sz, renderer, s, forward)
     timings = phase_timing(dev, sz, report, renderer, s, forward, calls, work,
                            bwd_work)
     timings.update(adam_losses=losses)
+    # The layered path after the renderer's timings, which then run in the
+    # state they ran in before the layered path existed.
+    layered = phase_layered_main(dev, sz, report, _kernels.KERNELS)
+    timings.update(phase_layered_timing(dev, sz, report, *layered))
 
     kernels_line = {"kernels": [report[k.name] for k in _kernels.KERNELS]}
     os.makedirs("chiprun_out", exist_ok=True)

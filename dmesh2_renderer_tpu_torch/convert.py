@@ -14,16 +14,19 @@ import torch
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
 
 # Scene inputs of the JAX package: the SceneParams fields (verts,
-# verts_color, faces_opacity) plus the rest of a render call's arguments.
+# verts_color, faces_opacity) plus the rest of a render call's arguments,
+# and the layered renderer's existence flags and tet adjacency.
 _FLOAT_FIELDS = ("verts", "verts_color", "faces_opacity", "faces_intense",
                  "mv", "proj", "background")
-_INT_FIELDS = ("faces",)
+_INT_FIELDS = ("faces", "faces_existence", "tets", "face_tets", "tet_faces")
 
 
 def scene_from_jax(arrays: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
     """numpy scene arrays -> the port's tensors on ``device``.
 
-    Floats become float32 and ``faces`` int32, each copied to ``device``.
+    Floats become float32 and the integer fields (``faces``,
+    ``faces_existence`` and the tet adjacency) int32, each copied to
+    ``device``.
     Raises ValueError on a name that is not a scene input.
     """
     out = {}

@@ -1,10 +1,11 @@
-"""Functional full-frame render entry points.
+"""Functional full-frame entry points.
 
-Port of ``render_partial`` and ``render`` of
-``dmesh2_renderer_tpu/functional.py``: rays are computed per call, so the
-whole render, and its gradient, is a function of its inputs. Inputs may be
-numpy arrays or tensors; they are moved to ``device`` (the card unless the
-caller passes ``device="cpu"``).
+Port of ``dmesh2_renderer_tpu/functional.py``: ``render_partial``,
+``render`` and ``render_banded`` (the differentiable renderer) and
+``peel_pipeline`` / ``generate_layers`` (the depth peel). Rays are computed
+per call, so the whole render, and its gradient, is a function of its
+inputs. Inputs may be numpy arrays or tensors; they are moved to ``device``
+(the card unless the caller passes ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -12,9 +13,14 @@ from __future__ import annotations
 import torch
 
 from dmesh2_renderer_tpu_torch import geometry as G
-from dmesh2_renderer_tpu_torch.ops.rasterize import make_rasterizer
+from dmesh2_renderer_tpu_torch.ops.binning import bin_faces
+from dmesh2_renderer_tpu_torch.ops.peel import peel_layers
+from dmesh2_renderer_tpu_torch.ops.rasterize import RasterAux, make_rasterizer
+from dmesh2_renderer_tpu_torch.ops.reference import face_depth01
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
-from dmesh2_renderer_tpu_torch.utils.validate import resolve_device, valence_cache
+from dmesh2_renderer_tpu_torch.utils.validate import (
+    check_face_indices, resolve_device, valence_cache,
+)
 
 
 def render_partial(
@@ -99,3 +105,106 @@ def render(
         background, width, height, aa_temperature, config, device=device,
     )
     return color, 1.0 - (depth_raw + 1.0) / 2.0, aux
+
+
+def render_banded(
+    verts, faces, verts_color, faces_opacity, faces_intense,
+    mv, proj, background,
+    width: int, height: int,
+    bands: int,
+    aa_temperature: float = 1.0,
+    config: RasterConfig | None = None,
+    device=None,
+):
+    """Render B views in ``bands`` sequential horizontal bands.
+
+    Bounds peak memory instead of wall time: each band is one
+    ``render_partial`` window of ``height // bands`` rows, so the live
+    buffers (emission grid, sorted stream, framebuffers) are band-sized.
+    ``config.binning_capacity`` applies per band. The stitched result is the
+    full-frame render (band compositing is per-pixel independent) and is
+    differentiable like it.
+
+    Returns (color (B, H, W, 3), depth in [0, 1], aux over the bands:
+    num_rendered and num_grad_contributing are per-band maxima, a per-band
+    capacity gauge, while num_truncated sums).
+    """
+    if height % bands:
+        raise ValueError(f"height {height} must divide into {bands} bands")
+    band = height // bands
+    colors, draws, auxs = [], [], []
+    for y0 in range(0, height, band):
+        color, depth_raw, _final_t, aux = render_partial(
+            verts, faces, verts_color, faces_opacity, faces_intense, mv, proj,
+            background, width, height, aa_temperature, config,
+            patch_origin=(0, y0), patch_shape=(band, width), device=device,
+        )
+        colors.append(color)
+        draws.append(depth_raw)
+        auxs.append(aux)
+    aux = RasterAux(
+        num_rendered=torch.stack([a.num_rendered for a in auxs]).amax(),
+        num_truncated=torch.stack([a.num_truncated for a in auxs]).sum(),
+        num_grad_contributing=torch.stack(
+            [a.num_grad_contributing for a in auxs]).amax(),
+    )
+    depth_raw = torch.cat(draws, dim=1)
+    return torch.cat(colors, dim=1), 1.0 - (depth_raw + 1.0) / 2.0, aux
+
+
+def peel_pipeline(verts, faces, faces_existence, mv, proj, ray_o, ray_d,
+                  width: int, height: int, num_layers: int,
+                  config: RasterConfig | None = None, device=None):
+    """Depth-peel core shared by ``generate_layers`` and
+    ``LayeredRenderer.generate``.
+
+    Bins by MIN face depth over the full frame, with no exact tile cull
+    (the layered orchestrator's choice, unlike the renderer's mean-depth
+    binning), then peels each tile (``ops/peel.py``). A face exists where
+    ``faces_existence > 0``. ``ray_o``/``ray_d``: (B, H, W, 3) rays of the B
+    views. Returns (layers (B, H, W, L) int32, counts (B, H, W) int32,
+    (num_rendered, num_truncated)).
+    """
+    cfg = config or RasterConfig()
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    verts, mv, proj, ray_o, ray_d = (f32(x) for x in (verts, mv, proj, ray_o, ray_d))
+    faces = torch.as_tensor(faces, dtype=torch.int32, device=dev).contiguous()
+    check_face_indices(faces, verts.shape[0])
+    exist = (torch.as_tensor(faces_existence, device=dev) > 0).to(torch.int32)
+    b = mv.shape[0]
+    verts_ndc, verts_image = G.compute_verts_ndc_image(verts, mv, proj, width, height)
+    # The CCW screen triangles: face_aa_triangles(...).verts of the JAX
+    # pipeline, without the edge tables it does not read.
+    tris = G.face_aa_verts_ccw(verts_image, faces)
+    _, min_depth, _, alive = face_depth01(verts_ndc, faces)
+    binning = bin_faces(
+        tris, min_depth, alive, torch.zeros((b, 2), dtype=torch.int32, device=dev),
+        width, height, cfg.binning_capacity, cfg.max_tiles_per_face,
+        num_giant_faces=cfg.num_giant_faces, giant_tiles=cfg.giant_tiles,
+    )
+    layers, counts = peel_layers(
+        binning.entry_bf, faces, verts.contiguous(), exist.contiguous(),
+        binning.tile_starts, binning.tile_counts,
+        ray_o[:, 0, 0, :].contiguous(), ray_d.contiguous(), width, height,
+        num_layers,
+    )
+    return layers, counts, (binning.num_rendered, binning.num_truncated)
+
+
+def generate_layers(verts, faces, faces_existence, mv, proj,
+                    width: int, height: int, num_layers: int,
+                    config: RasterConfig | None = None, device=None):
+    """Functional depth peel over B full-frame views (the class form is
+    ``models.LayeredRenderer.generate``). Returns (layers (B, H, W, L)
+    int32 face ids, -1 padded, counts (B, H, W) int32, (num_rendered,
+    num_truncated))."""
+    dev = resolve_device(device)
+    mv = torch.as_tensor(mv, dtype=torch.float32, device=dev)
+    proj = torch.as_tensor(proj, dtype=torch.float32, device=dev)
+    ray_o, ray_d = G.init_rays(mv, proj, width, height)
+    return peel_pipeline(verts, faces, faces_existence, mv, proj, ray_o,
+                         ray_d, width, height, num_layers, config, device=dev)

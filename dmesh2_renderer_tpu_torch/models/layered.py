@@ -1,0 +1,56 @@
+"""LayeredRenderer: exact depth peeling (non-differentiable).
+
+Port of ``dmesh2_renderer_tpu/models/layered.py``: the same constructor and
+``generate`` signature, including the tetrahedral adjacency tensors, which
+the peel does not need (``ops/peel.py``) but which are accepted and checked
+for parity. It uses the rays the ``Renderer`` precomputed for its cameras.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dmesh2_renderer_tpu_torch.functional import peel_pipeline
+from dmesh2_renderer_tpu_torch.models.renderer import Renderer
+from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
+from dmesh2_renderer_tpu_torch.utils.validate import (
+    check_camera_indices, check_layered_args,
+)
+
+
+class LayeredRenderer(Renderer):
+    # The JAX class's signature: ``config`` is the sixth positional
+    # argument here, where the Renderer has ``aa_grad_buffer_size``.
+    def __init__(self, mv, proj, width, height, device=None,
+                 config: RasterConfig | None = None):
+        super().__init__(mv, proj, width, height, device=device, config=config)
+
+    def generate(
+        self,
+        batch_mvp_idx,       # (B,) int camera indices
+        verts,               # (P, 3)
+        faces,               # (F, 3) int
+        tets,                # (T, 4) int   -- accepted for API parity
+        face_tets,           # (F, 2) int   -- accepted for API parity
+        tet_faces,           # (T, 4) int   -- accepted for API parity
+        faces_existence,     # (F,) int
+        num_layers: int,
+    ):
+        """Returns (render_layers (B, H, W, L) int32 face IDs, -1 padded,
+        render_layers_cnt (B, H, W) int32). ``faces_existence`` is cast to
+        int32 first, as in the JAX class: a fractional flag below 1 drops
+        the face. ``self.last_aux`` holds (num_rendered, num_truncated)."""
+        check_layered_args(verts, faces, tets, face_tets, tet_faces,
+                           faces_existence)
+        del tets, face_tets, tet_faces  # peel needs no adjacency
+        check_camera_indices(batch_mvp_idx, self.num_batch)
+        dev = self.device
+        idx = torch.as_tensor(batch_mvp_idx, dtype=torch.int64, device=dev)
+        exist = torch.as_tensor(faces_existence, device=dev).to(torch.int32)
+        layers, counts, aux = peel_pipeline(
+            verts, faces, exist, self.mv[idx], self.proj[idx], self.ray_o[idx],
+            self.ray_d[idx], self.width, self.height, int(num_layers),
+            self.config, device=dev,
+        )
+        self.last_aux = aux
+        return layers, counts

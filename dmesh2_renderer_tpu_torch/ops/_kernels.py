@@ -146,7 +146,20 @@ COMPOSITE_BWD = Kernel("composite_bwd", "composite_bwd.cu", [
     P, P,                 # out, stream
 ], extra_flags=("-fmad=false",))
 
-KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD)
+# peel is built without FMA contraction so that its hit tests round every
+# operation as its plain version does.
+PEEL = Kernel("peel", "peel.cu", [
+    P, L,                 # entry_bf, R
+    P, P, P, I,           # faces, verts, faces_existence, F
+    P, P, P, I,           # tile_starts, tile_counts, tile_ids (or null), n_blocks
+    P, P,                 # ray_o, ray_d
+    I, I, I, I,           # H, W, gx, gy
+    I, I,                 # slot count (instantiation), layers written
+    P, P,                 # layers, counts
+    P,                    # stream
+], extra_flags=("-fmad=false",))
+
+KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD, PEEL)
 
 
 def build_all() -> None:

@@ -55,6 +55,21 @@ def tile_grid_size(patch_width: int, patch_height: int):
     return gx, gy
 
 
+def tile_lanes(tile_ids, gx: int, gy: int, width: int, height: int):
+    """Pixels of the given tiles (tile-major over B x gy x gx, lane = the
+    pixel's row-major index in its 16x16 tile): batch (G,), and x, y and
+    the in-frame mask, each (G, 256)."""
+    tiles_per_batch = gx * gy
+    bt = tile_ids // tiles_per_batch
+    rem = tile_ids - bt * tiles_per_batch
+    ty = rem // gx
+    tx = rem - ty * gx
+    lane = torch.arange(TILE_X * TILE_Y, device=tile_ids.device)
+    x = tx[:, None] * TILE_X + (lane % TILE_X)[None, :]
+    y = ty[:, None] * TILE_Y + (lane // TILE_X)[None, :]
+    return bt, x, y, (x < width) & (y < height)
+
+
 def face_tile_rects(aa_face_verts, patch_min, gx: int, gy: int):
     """Clamped tile rectangles per (batch, face).
 

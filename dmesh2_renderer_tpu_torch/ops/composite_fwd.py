@@ -26,7 +26,7 @@ from dmesh2_renderer_tpu_torch.aa import tri_box_overlap_area_xy
 from dmesh2_renderer_tpu_torch.geometry import clamp_bary_uv
 from dmesh2_renderer_tpu_torch.ops import _kernels
 from dmesh2_renderer_tpu_torch.ops.binning import (
-    REC_AA, REC_C, REC_IN, REC_OP, REC_V, REC_Z, tile_grid_size,
+    REC_AA, REC_C, REC_IN, REC_OP, REC_V, REC_Z, tile_grid_size, tile_lanes,
 )
 from dmesh2_renderer_tpu_torch.utils.config import (
     FACE_RECORD_WIDTH, T_EPS, TILE_PIXELS, TILE_X, TILE_Y,
@@ -52,16 +52,8 @@ _EXIT_CHECK = 16
 def tile_pixels(b, gx, gy, patch_width, patch_height, patch_min, device):
     """Per-(tile, lane) pixel coordinates: batch (T,), x, y, in_patch, and
     the integer pixel-box corners px0, py0 as float (T, 256) planes."""
-    n_tiles = b * gx * gy
-    tile = torch.arange(n_tiles, device=device)
-    bt = tile // (gx * gy)
-    rem = tile - bt * (gx * gy)
-    ty = rem // gx
-    tx = rem - ty * gx
-    lane = torch.arange(TILE_PIXELS, device=device)
-    x = tx[:, None] * TILE_X + (lane % TILE_X)[None, :]
-    y = ty[:, None] * TILE_Y + (lane // TILE_X)[None, :]
-    in_patch = (x < patch_width) & (y < patch_height)
+    bt, x, y, in_patch = tile_lanes(torch.arange(b * gx * gy, device=device),
+                                    gx, gy, patch_width, patch_height)
     pm = patch_min.long()
     px0 = (pm[bt, 0][:, None] + x).to(torch.float32)
     py0 = (pm[bt, 1][:, None] + y).to(torch.float32)

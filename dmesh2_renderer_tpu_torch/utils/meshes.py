@@ -1,8 +1,8 @@
-"""Test/benchmark geometry: icosphere, triangle soup, cameras (numpy).
+"""Test/benchmark geometry: icosphere, triangle soup, tet grid, cameras
+(numpy).
 
 The port's own copy of ``dmesh2_renderer_tpu/utils/meshes.py`` (the JAX
-package's ``__init__`` imports JAX, so the port cannot import it). The tet
-grid of the layered renderer comes with that renderer's slice.
+package's ``__init__`` imports JAX, so the port cannot import it).
 """
 
 from __future__ import annotations
@@ -105,3 +105,53 @@ def orbit_cameras(n: int, radius: float = 3.0, elevation: float = 0.3):
         mvs.append(look_at(eye))
         projs.append(perspective())
     return np.stack(mvs), np.stack(projs)
+
+
+def tet_grid(res: int = 2, extent: float = 1.2):
+    """Regular tetrahedral grid filling a cube (the layered renderer's scene).
+
+    Each cube cell is split into 6 tets. Returns (verts (P,3) f32,
+    tets (T,4) i32, faces (F,3) i32, face_tets (F,2) i32, tet_faces (T,4) i32)
+    with the adjacency layout ``LayeredRenderer.generate`` takes.
+
+    The JAX package's pure-Python path, vectorised with the same output:
+    tets in (i, j, k, cell-tet) order, faces as sorted vertex triples
+    numbered by first appearance in (tet, face-of-tet) order, ``face_tets``
+    the first and the last tet that holds each face (-1 where only one
+    does).
+    """
+    xs = np.linspace(-extent, extent, res + 1)
+    grid = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), axis=-1)
+    verts = grid.reshape(-1, 3).astype(np.float32)
+
+    n = res + 1
+    i, j, k = (a.reshape(-1) for a in np.meshgrid(
+        np.arange(res), np.arange(res), np.arange(res), indexing="ij"))
+    # Cube corner c is (i + c//4, j + (c//2)%2, k + c%2).
+    c = np.arange(8)
+    corners = (((i[:, None] + c // 4) * n + j[:, None] + (c // 2) % 2) * n
+               + k[:, None] + c % 2)                                  # (N, 8)
+    cube_tets = np.array([(0, 1, 3, 7), (0, 1, 7, 5), (0, 5, 7, 4),
+                          (0, 3, 2, 7), (0, 2, 6, 7), (0, 6, 4, 7)])
+    tets = corners[:, cube_tets].reshape(-1, 4).astype(np.int32)
+
+    tri_of_tet = np.array([(1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)])
+    tris = np.sort(tets[:, tri_of_tet].reshape(-1, 3).astype(np.int64), axis=1)
+    p = np.int64(verts.shape[0])
+    key = (tris[:, 0] * p + tris[:, 1]) * p + tris[:, 2]
+    _, first, inverse = np.unique(key, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")       # faces by first appearance
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.shape[0])
+    face_of = rank[inverse.reshape(-1)]            # face id per (tet, face)
+    faces = tris[first[order]].astype(np.int32)
+    tet_faces = face_of.reshape(-1, 4).astype(np.int32)
+
+    # Last appearance of each face: the end of its run in a stable sort.
+    by_face = np.argsort(face_of, kind="stable")
+    count = np.bincount(face_of, minlength=faces.shape[0])
+    last = by_face[np.cumsum(count) - 1]
+    face_tets = np.full((faces.shape[0], 2), -1, np.int32)
+    face_tets[:, 0] = first[order] // 4
+    face_tets[:, 1] = np.where(count > 1, last // 4, -1)
+    return verts, tets, faces, face_tets, tet_faces

@@ -39,10 +39,8 @@ def check_vertex_valence(faces, max_vertex_valence: int,
     f = _host_array(faces)
     if f.size == 0:
         return True
-    if num_verts is not None and (f.min() < 0 or f.max() >= num_verts):
-        raise ValueError(
-            f"faces index vertices in [{f.min()}, {f.max()}], outside "
-            f"[0, {num_verts})")
+    if num_verts is not None:
+        check_face_indices(torch.as_tensor(f), num_verts)
     val = int(np.bincount(f.ravel()).max())
     if val > max_vertex_valence:
         raise ValueError(
@@ -122,6 +120,41 @@ def check_render_args(verts, faces, verts_color, faces_opacity, faces_intense,
         raise ValueError(f"aa_temperature must be in [0, 1], got {tau}")
 
 
+def check_layered_args(verts, faces, tets, face_tets, tet_faces,
+                       faces_existence):
+    p3, fs = _shape(verts), _shape(faces)
+    if len(p3) != 2 or p3[1] != 3:
+        raise ValueError(f"verts must be (P, 3), got {p3}")
+    if len(fs) != 2 or fs[1] != 3:
+        raise ValueError(f"faces must be (F, 3), got {fs}")
+    f = fs[0]
+    ts = _shape(tets)
+    if len(ts) != 2 or ts[1] != 4:
+        raise ValueError(f"tets must be (T, 4), got {ts}")
+    if _shape(face_tets) != (f, 2):
+        raise ValueError(f"face_tets must be (F, 2) = ({f}, 2), got {_shape(face_tets)}")
+    if _shape(tet_faces) != (ts[0], 4):
+        raise ValueError(
+            f"tet_faces must be (T, 4) = ({ts[0]}, 4), got {_shape(tet_faces)}"
+        )
+    if _shape(faces_existence) != (f,):
+        raise ValueError(
+            f"faces_existence must be (F,) = ({f},), got {_shape(faces_existence)}"
+        )
+
+
+def check_face_indices(faces: torch.Tensor, num_verts: int) -> None:
+    """Every vertex index of ``faces`` must lie in [0, num_verts): the CUDA
+    kernels read vertex rows through them unchecked. Reduces on the
+    tensor's own device (one host sync)."""
+    if faces.numel() == 0:
+        return
+    lo, hi = torch.stack(torch.aminmax(faces)).tolist()
+    if lo < 0 or hi >= num_verts:
+        raise ValueError(
+            f"faces index vertices in [{lo}, {hi}], outside [0, {num_verts})")
+
+
 def check_cameras(mv, proj):
     ms, ps = _shape(mv), _shape(proj)
     if len(ms) != 3 or ms[1:] != (4, 4):
@@ -145,19 +178,27 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def check_camera_indices(batch_mvp_idx, num_cameras: int) -> np.ndarray:
+    """Every view's camera index must select one of the cameras: the rays
+    and matrices are gathered through it. Returns the indices as a flat
+    host array."""
+    idx = _host_array(batch_mvp_idx).reshape(-1)
+    if idx.size and (idx.min() < 0 or idx.max() >= num_cameras):
+        raise ValueError(
+            f"batch_mvp_idx must index the {num_cameras} cameras, got {idx.tolist()}")
+    return idx
+
+
 def check_patch_windows(batch_mvp_idx, batch_patch_min, patch_width: int,
                         patch_height: int, num_cameras: int, width: int,
                         height: int):
     """Every view's camera index and patch window must lie in the frame:
     the rays of each window are gathered from the full-frame ray maps."""
-    idx = _host_array(batch_mvp_idx).reshape(-1)
+    idx = check_camera_indices(batch_mvp_idx, num_cameras)
     pm = _host_array(batch_patch_min)
     if pm.shape != (idx.shape[0], 2):
         raise ValueError(
             f"batch_patch_min must be (B, 2) = ({idx.shape[0]}, 2), got {pm.shape}")
-    if idx.size and (idx.min() < 0 or idx.max() >= num_cameras):
-        raise ValueError(
-            f"batch_mvp_idx must index the {num_cameras} cameras, got {idx.tolist()}")
     if pm.size and (pm.min() < 0 or (pm[:, 0] + patch_width).max() > width
                     or (pm[:, 1] + patch_height).max() > height):
         raise ValueError(

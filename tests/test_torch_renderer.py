@@ -13,9 +13,10 @@ import pytest
 import torch
 
 from dmesh2_renderer_tpu.functional import render as jax_render
+from dmesh2_renderer_tpu.functional import render_banded as jax_render_banded
 from dmesh2_renderer_tpu.models.renderer import Renderer as JaxRenderer
 from dmesh2_renderer_tpu.utils.config import RasterConfig as JaxConfig
-from dmesh2_renderer_tpu_torch import RasterConfig, Renderer, render
+from dmesh2_renderer_tpu_torch import RasterConfig, Renderer, render, render_banded
 from dmesh2_renderer_tpu_torch.convert import config_from_jax, scene_from_jax
 from tests._torch_port import scene_arrays, to_numpy
 
@@ -93,6 +94,31 @@ def test_functional_render_matches_jax():
     assert [int(x) for x in got[2]] == [int(x) for x in want[2]]
 
 
+def test_render_banded_matches_full_frame_and_jax():
+    """Bands stitch to the port's own full-frame render (within the 5e-6
+    that tests/test_api.py allows the JAX package) and match the JAX
+    render_banded (each package's own rays: OWN_RAYS_TOL); the aux takes the
+    per-band maxima and the summed truncation. A height that does not
+    divide into the bands raises."""
+    s = scene_arrays(b=2, seed=5)
+    args = [s[k] for k in RENDER_KEYS[:5]] + [s["mv"], s["proj"], s["background"]]
+    cfg = config_from_jax(dataclasses.asdict(JAX_CFG))
+    full = render(*args, 40, 48, 1.0, cfg, device="cpu")
+    band = render_banded(*args, 40, 48, 4, 1.0, cfg, device="cpu")
+    want = jax_render_banded(*[jnp.asarray(x) for x in args], 40, 48, bands=4,
+                             aa_temperature=1.0, config=JAX_CFG)
+    for got, ref, tol in ((band[0], full[0], 5e-6), (band[1], full[1], 5e-6),
+                          (band[0], want[0], OWN_RAYS_TOL["atol"]),
+                          (band[1], want[1], OWN_RAYS_TOL["atol"])):
+        assert tuple(got.shape) == tuple(np.shape(ref))
+        np.testing.assert_allclose(to_numpy(got), to_numpy(ref), atol=tol)
+    assert [int(x) for x in band[2]] == [int(x) for x in want[2]]
+    assert int(band[2].num_truncated) == 0
+    assert 0 < int(band[2].num_rendered) < int(full[2].num_rendered)
+    with pytest.raises(ValueError, match="bands"):
+        render_banded(*args, 40, 47, 4, config=cfg, device="cpu")
+
+
 def test_reference_path_matches_kernel_path():
     """use_pallas=False (the plain reference compositor, no binning) renders
     the same image as the binned tile compositor."""
@@ -164,6 +190,7 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
         composite_backward, composite_backward_plain)
     from dmesh2_renderer_tpu_torch.ops.composite_fwd import composite_forward
+    from dmesh2_renderer_tpu_torch.ops.peel import peel_layers, peel_layers_plain
 
     def meta(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="meta")
@@ -193,6 +220,18 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
         pack_stream(meta(128, dtype=torch.int32), meta(4, 3, dtype=torch.int32),
                     meta(6, 3), meta(6, 3), meta(1, 6, 3), meta(4), meta(1, 4),
                     meta(1, 4, 3, 2))
+
+    def peel_args(make):
+        i32 = dict(dtype=torch.int32)
+        return (make(128, **i32), make(4, 3, **i32), make(6, 3), make(4, **i32),
+                make(4, **i32), make(4, **i32), make(1, 3), make(1, 32, 32, 3),
+                32, 32, 3)
+
+    with pytest.raises(ValueError, match="CUDA"):
+        peel_layers(*peel_args(meta))
+    args = peel_args(cpu)
+    assert all(torch.equal(a, b) for a, b in zip(peel_layers(*args),
+                                                 peel_layers_plain(*args)))
 
 
 def test_port_imports_no_jax():
