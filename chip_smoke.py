@@ -8,14 +8,15 @@ Run from the repository root, on a machine with one CUDA card:
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Build every CUDA kernel from ``dmesh2_renderer_tpu_torch/csrc`` (one nvcc
-   per source, all at once) and print the card's name and power limit.
+   per source, all at once) and print the card's name and power limit, the
+   ptxas resource lines and each compositor's registers, shared memory and
+   resident blocks per SM.
 2. Hold each kernel against its plain PyTorch version on the card, on the
    inputs the entry points give it (recorded as they call the kernel
    wrappers): icosphere(3), 4 views at 512x512 through one ragged 376x312
    window, tau 1 and 0. ``pack_stream`` must equal its plain version
-   exactly; ``composite_fwd`` must agree within 1e-5 on colour, depth,
-   final_t and prev_t, with at most 1e-4 of pixels (and of tiles) differing
-   in n_contrib (nc_tile); ``composite_bwd`` (from ``loss.backward()``
+   exactly; ``composite_fwd`` too, bit for bit (colour, depth, final_t,
+   prev_t, n_contrib, nc_tile); ``composite_bwd`` (from ``loss.backward()``
    through ``render_partial``, with a loss on colour, depth and final_t)
    must agree column by column within 2e-5 x max(|column|, 1) on colour,
    opacity, intensity and z and 5e-4 x max(|column|, 1) on the
@@ -29,6 +30,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    frame, 3 and 8 layers; there the card's LayeredRenderer is also held
    against the numpy brute force of tests/test_peel.py (under 1% of pixels
    may differ).
+2c. Both compositors against their plain versions on a synthetic stress
+   scene (2 views x 3,000 small faces piled over a few tiles of a ragged
+   72x40 window; bbox edges on pixel boundaries; entries no pixel blends
+   between ones that do; prefixes that are not a multiple of the chunk or
+   of the backward's entry group) at tau 0, 0.5 and 1: the forward bit for
+   bit, the backward within the phase-2 tolerances and with identical bits
+   on two runs.
 3. The main path at full size: one training step, ``Renderer.forward`` on
    the 1M-triangle soup at 1920x1080 (the JAX package's headline scene) and
    ``loss.backward()`` of ``color.sum() + depth.sum()``, with every kernel
@@ -36,8 +44,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    have launched. The output must be finite, drop no entries and cover
    pixels, and every gradient must be finite and non-zero. The kernels'
    outputs of that step, and the forward kernels' of a 256x256 window of
-   the same scene, are held against their plain versions as in phase 2.
-   Then 5 Adam steps toward a target rendered with perturbed colours must
+   the same scene, are held against their plain versions as in phase 2,
+   which also count the work those inputs need (printed), and
+   ``composite_bwd`` run twice more on the step's inputs must give the same
+   bits. Then 5 Adam steps toward a target rendered with perturbed colours must
    lower the loss.
 4. Timing with CUDA events (median of repeated runs after warm-up): the
    1080p forward and training step, the backward alone, each kernel on the
@@ -61,6 +71,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    hits counted by the plain version over every tile, which is also held
    against the kernel there) and beside its plain version, over every tile
    and on the sampled tiles.
+7. The card's busy time in the 1080p forward and training step: the union
+   of the device intervals torch.profiler records, beside the wall time of
+   the profiled calls.
 
 The next-to-last lines are the ``{"kernels": [...]}`` JSON line and the
 card's ``nvidia-smi`` name and power limit; the last line is the
@@ -98,8 +111,6 @@ REPLACES = {
 TRAINING_KERNELS = ("pack_stream", "composite_fwd", "composite_bwd")
 LAYERED_KERNELS = ("peel",)
 
-KERNEL_TOL = 1e-5          # colour, depth, final_t, prev_t: kernel vs plain
-COUNT_MISMATCH_FRAC = 1e-4  # n_contrib / nc_tile mismatches allowed
 # composite_bwd vs its plain version, per gradient-record column, times
 # max(|column|, 1): the kernel's block sums and the plain version's
 # torch.sum associate differently, and the Moeller-Trumbore and AA columns
@@ -121,6 +132,13 @@ class Sizes:
     check_window: tuple = (70, 90, 376, 312)        # x0, y0, pw, ph (ragged)
     small_subdiv: int = 2
     small_res: int = 128
+    # Compositor stress scene: per view, stress_faces small faces piled over
+    # three clusters of a few tiles in a ragged window.
+    stress_views: int = 2
+    stress_faces: int = 3000
+    stress_window: tuple = (72, 40)                 # pw, ph (ragged)
+    stress_taus: tuple = (0.0, 0.5, 1.0)
+    stress_seed: int = 4
     n_faces: int = 1_000_000
     width: int = 1920
     height: int = 1080
@@ -180,6 +198,42 @@ def time_ms(fn, reps: int, warmup: int = 1) -> tuple[float, list[float]]:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), times
+
+
+def merged_span_us(spans) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            total += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+def device_busy(fn, reps: int = 3) -> tuple[float, float]:
+    """Wall milliseconds per call of ``fn()`` (CUDA events around ``reps``
+    calls, after one warm-up) under torch.profiler, and the milliseconds per
+    call in which the card ran a kernel or a copy: the union of the device
+    activity intervals the profiler records. The profiler slows the host,
+    so their ratio is a lower bound of the device's busy share. Busy is 0
+    when the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return start.elapsed_time(end) / reps, merged_span_us(spans) / 1e3 / reps
 
 
 def scene_tensors(verts, faces, b, rng, dev):
@@ -243,8 +297,10 @@ def captured_kernel_calls(module=None, names=("pack_stream", "composite_forward"
 
 
 def compare_composite(kernel_out, plain_out, label):
-    """Max abs error over colour/depth/final_t/prev_t and count mismatches;
-    raises when they exceed the limits."""
+    """composite_fwd must equal its plain version bit for bit: colour,
+    depth, final_t, prev_t, n_contrib and nc_tile (the backward replays its
+    blend decisions). Prints the max abs errors and count mismatches; raises
+    unless all are zero."""
     errs = {}
     for name, k, p in zip(("color", "depth", "final_t", "prev_t"),
                           kernel_out[:4], plain_out[:4]):
@@ -257,13 +313,9 @@ def compare_composite(kernel_out, plain_out, label):
     print(f"  {label}: composite_fwd max|err| " +
           " ".join(f"{k}={v:.3g}" for k, v in errs.items()) +
           f"; n_contrib mismatches {nc_bad}/{n_pix}, nc_tile {tile_bad}/{n_tiles}")
-    worst = max(errs.values())
-    if worst > KERNEL_TOL:
-        raise AssertionError(f"{label}: composite_fwd error {worst} > {KERNEL_TOL}")
-    if nc_bad > COUNT_MISMATCH_FRAC * n_pix or tile_bad > COUNT_MISMATCH_FRAC * n_tiles:
-        raise AssertionError(f"{label}: composite_fwd count mismatches "
-                             f"{nc_bad} pixels, {tile_bad} tiles")
-    return worst
+    if not all(torch.equal(k, p) for k, p in zip(kernel_out, plain_out)):
+        raise AssertionError(f"{label}: composite_fwd differs from its plain version")
+    return max(errs.values())
 
 
 def compare_pack(kernel_rec, plain_rec, label):
@@ -421,6 +473,152 @@ def phase_kernel_checks(dev, sz: Sizes, report):
           + ", ".join(msgs))
 
 
+def stress_scene(dev, sz: Sizes):
+    """Compositor inputs of a synthetic pile, made with numpy from
+    ``sz.stress_seed``: per view, ``sz.stress_faces`` small faces (a few
+    pixels across, opacity 0.02-0.25) around three cluster centres, seen by
+    a pinhole camera through a ragged window, and four near-opaque quads
+    over two whole tiles mid-pile (those tiles stop before the end of their
+    lists, at tau 0). A quarter of the small faces have
+    one bbox edge moved onto a pixel boundary (px0 + 1 == txmin, px0 ==
+    txmax, and the same in y). Each tile lists, by depth, the faces whose
+    bbox meets one of its pixel boxes, with one in eight as many faces far
+    from the tile inserted at random places: entries no pixel can blend,
+    between entries that do.
+
+    Returns (composite_forward's arguments without tau, number of entries
+    with a pixel box of their tile at px0 + 1 == txmin).
+    """
+    rng = np.random.default_rng(sz.stress_seed)
+    b, (pw, ph) = sz.stress_views, sz.stress_window
+    gx, gy = -(-pw // 16), -(-ph // 16)
+    focal, cx, cy = 40.0, pw / 2 + 1.3, ph / 2 - 0.7
+    patch_min = np.array([[3, 5], [0, 0]], np.int32)[:b]
+    ray_o = np.array([[0.0, 0.0, 0.0], [0.2, -0.1, 0.05]], np.float32)[:b]
+    xs = patch_min[:, 0, None, None] + np.arange(pw)[None, None, :] + 0.5
+    ys = patch_min[:, 1, None, None] + np.arange(ph)[None, :, None] + 0.5
+    d = np.stack(np.broadcast_arrays((xs - cx) / focal, (ys - cy) / focal,
+                                     np.ones((b, ph, pw))), -1)
+    ray_d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+
+    recs, starts, counts, touch = [], [], [], 0
+    n = sz.stress_faces
+    for view in range(b):
+        centres = patch_min[view] + rng.uniform([6, 6], [pw - 6, ph - 6], size=(3, 2))
+        c = centres[rng.integers(0, 3, n)] + rng.normal(scale=4.0, size=(n, 2))
+        aa = c[:, None, :] + rng.uniform(-3.0, 3.0, size=(n, 3, 2))
+        for i in np.nonzero(rng.uniform(size=n) < 0.25)[0]:
+            coords = aa[i, :, rng.integers(0, 2)]
+            k = np.argmin(coords) if rng.uniform() < 0.5 else np.argmax(coords)
+            coords[k] = np.round(coords[k])
+        z = rng.uniform(2.0, 5.0, size=(n, 3))
+        # Four near-opaque quads (faces 0-7) over two whole tiles, mid-pile:
+        # those tiles stop before the end of their lists.
+        x0, y0 = patch_min[view]
+        a, b_, c_, d_ = np.array([[15, -1], [49, -1], [49, 17], [15, 17]]) + [x0, y0]
+        for q in range(4):
+            aa[2 * q], aa[2 * q + 1] = (a, b_, c_), (a, c_, d_)
+            z[2 * q:2 * q + 2] = 3.0 + 0.2 * q
+        # Counter-clockwise: positive shoelace area, as the AA area expects.
+        x, y = aa[..., 0], aa[..., 1]
+        area2 = (x[:, 0] * y[:, 1] - x[:, 1] * y[:, 0] + x[:, 1] * y[:, 2]
+                 - x[:, 2] * y[:, 1] + x[:, 2] * y[:, 0] - x[:, 0] * y[:, 2])
+        aa[area2 < 0] = aa[area2 < 0][:, [0, 2, 1]]
+        aa = aa.astype(np.float32)
+        verts = ray_o[view] + np.stack([(aa[..., 0] - cx) / focal * z,
+                                        (aa[..., 1] - cy) / focal * z, z], -1)
+        rec = np.zeros((n, 32), np.float32)
+        rec[:, 0:9] = verts.reshape(n, 9)
+        rec[:, 9:18] = rng.uniform(size=(n, 9))
+        rec[:, 18] = rng.uniform(0.02, 0.25, n)
+        rec[:8, 18] = 0.95
+        rec[:, 19] = rng.uniform(0.5, 1.0, n)
+        rec[:, 20:23] = z / 10.0
+        rec[:, 23:29] = aa.reshape(n, 6)
+        order = np.argsort(z.mean(1), kind="stable")
+        txmin, txmax = aa[..., 0].min(1), aa[..., 0].max(1)
+        tymin, tymax = aa[..., 1].min(1), aa[..., 1].max(1)
+        for ty in range(gy):
+            for tx in range(gx):
+                x0, y0 = patch_min[view, 0] + 16 * tx, patch_min[view, 1] + 16 * ty
+                x1, y1 = min(x0 + 16, patch_min[view, 0] + pw), min(y0 + 16, patch_min[view, 1] + ph)
+                # A pixel box [px0, px0 + 1] of the tile meets the bbox.
+                meets = (txmin <= x1) & (txmax >= x0) & (tymin <= y1) & (tymax >= y0)
+                ids = order[meets[order]]
+                far = np.nonzero((txmin > x1 + 2) | (txmax < x0 - 2)
+                                 | (tymin > y1 + 2) | (tymax < y0 - 2))[0]
+                k = min(len(far), max(1, len(ids) // 8))
+                ids = np.insert(ids, np.sort(rng.integers(0, len(ids) + 1, k)),
+                                rng.choice(far, k, replace=False))
+                touch += int(((txmin[ids] > x0) & (txmin[ids] <= x1)
+                              & (txmin[ids] == np.round(txmin[ids]))
+                              & (tymin[ids] <= y1) & (tymax[ids] >= y0)).sum())
+                starts.append(sum(len(r) for r in recs))
+                counts.append(len(ids))
+                recs.append(rec[ids])
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    args = (t(np.concatenate(recs)), t(np.asarray(starts), torch.int32),
+            t(np.asarray(counts), torch.int32), t(ray_o), t(ray_d),
+            torch.tensor([0.1, 0.2, 0.3], device=dev), t(patch_min), pw, ph)
+    return args, touch
+
+
+def phase_stress(dev, sz: Sizes, report):
+    """Both compositors against their plain versions on the stress scene
+    (:func:`stress_scene`) at each tau: the forward bit for bit, the
+    backward within its per-column tolerances and with identical bits on
+    two runs. The scene must give a contributing prefix longer than a chunk
+    whose length is not a multiple of the chunk or of the backward's entry
+    group, and entries no pixel blends between entries that do."""
+    from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
+        composite_backward, composite_backward_plain)
+    from dmesh2_renderer_tpu_torch.ops.composite_fwd import (
+        composite_forward, composite_forward_plain)
+
+    args, touch = stress_scene(dev, sz)
+    records, starts, counts = args[:3]
+    b, (pw, ph) = sz.stress_views, sz.stress_window
+    print(f"phase 2c: compositor stress scene, {b} views x {sz.stress_faces} faces "
+          f"piled in a ragged {pw}x{ph} window: {records.shape[0]} entries over "
+          f"{counts.numel()} tiles (longest list {int(counts.max())}); {touch} "
+          "entries with a pixel box at px0 + 1 == txmin")
+    if touch == 0:
+        raise AssertionError("stress scene has no bbox touching a pixel box")
+    rng = np.random.default_rng(sz.stress_seed + 1)
+    cot = [torch.as_tensor(rng.normal(size=s).astype(np.float32), device=dev)
+           for s in ((b, ph, pw, 3), (b, ph, pw), (b, ph, pw))]
+    ragged = idle = stopped = 0
+    for tau in sz.stress_taus:
+        out = composite_forward(*args, tau)
+        err = compare_composite(out, composite_forward_plain(*args, tau),
+                                f"stress tau={tau}")
+        report["composite_fwd"]["max_abs_err"] = max(report["composite_fwd"]["max_abs_err"], err)
+        n_loop = torch.minimum(counts, out[5].clamp(min=0))
+        ragged += int(((n_loop > 64) & (n_loop % 64 != 0) & (n_loop % 8 != 0)).sum())
+        stopped += int((out[2] < 1e-4).sum())
+        bwd_args = (*args[:3], out[5], *args[3:7], *out[:4], *cot, pw, ph, tau)
+        grads = [composite_backward(*bwd_args) for _ in range(2)]
+        work = {}
+        plain = composite_backward_plain(*bwd_args, work=work)
+        sync()
+        err = compare_backward(grads[0], plain, f"stress tau={tau}")
+        report["composite_bwd"]["max_abs_err"] = max(report["composite_bwd"]["max_abs_err"], err)
+        if not torch.equal(grads[0], grads[1]):
+            raise AssertionError(f"stress tau={tau}: composite_bwd differs between two runs")
+        idle += int(work["records"]) - int(work["grad_records"])
+        print(f"    prefixes min(count, nc_tile): {n_loop.tolist()}; entries of a "
+              f"prefix no pixel blends: {int(work['records']) - int(work['grad_records'])} "
+              f"of {int(work['records'])}; pixels that stop at T < 1e-4: "
+              f"{int((out[2] < 1e-4).sum())}; composite_bwd identical bits on two runs")
+    if ragged == 0 or idle == 0 or stopped == 0:
+        raise AssertionError(f"stress scene misses a case: {ragged} ragged prefixes "
+                             f"longer than a chunk, {idle} idle entries, {stopped} "
+                             "stopped pixels")
+
+
 def headline_scene(dev, sz: Sizes):
     from dmesh2_renderer_tpu_torch import RasterConfig
     from dmesh2_renderer_tpu_torch.utils.meshes import orbit_cameras, triangle_soup
@@ -440,6 +638,15 @@ def headline_scene(dev, sz: Sizes):
                           num_giant_faces=16384, giant_tiles=40,
                           exact_tile_cull=True)
     return s, mv, proj, config
+
+
+def training_step(forward, params):
+    """One training step: ``forward(params)``, then ``loss.backward()`` of
+    ``color.sum() + depth.sum()`` into freshly cleared gradients."""
+    for t in params.values():
+        t.grad = None
+    color, depth = forward(params)
+    (color.sum() + depth.sum()).backward()
 
 
 def check_grads(params, label):
@@ -498,6 +705,17 @@ def phase_main_path(dev, sz: Sizes, report, kernels):
     main_label = f"main {sz.width}x{sz.height}"
     check_kernels(calls, main_label, report, work=work)
     check_backward(calls, main_label, report, work=bwd_work)
+    print("  work these inputs need (plain versions' counts): forward "
+          f"{ {k: int(v) for k, v in work.items()} }, backward "
+          f"{ {k: int(v) for k, v in bwd_work.items()} }")
+
+    # Determinism: the backward kernel again, twice, on the same inputs.
+    from dmesh2_renderer_tpu_torch.ops.composite_bwd import composite_backward
+    bwd_args, bwd_out = calls["composite_backward"]
+    same = all(torch.equal(bwd_out, composite_backward(*bwd_args)) for _ in range(2))
+    print(f"  composite_bwd on the {main_label} inputs, three runs: identical bits {same}")
+    if not same:
+        raise AssertionError("composite_bwd is not deterministic")
 
     # A 256x256 window of the same scene, through the same forward.
     x0, y0, pw, ph = sz.patch
@@ -618,14 +836,7 @@ def phase_timing(dev, sz: Sizes, report, renderer, s, forward, calls, work,
     # The training step (forward + backward of color.sum() + depth.sum())
     # and the backward alone (retained graph of one forward).
     p = leaves_of(s)
-
-    def train_step():
-        for t in p.values():
-            t.grad = None
-        color, depth = forward(p)
-        (color.sum() + depth.sum()).backward()
-
-    step_ms, step_all = time_ms(train_step, sz.reps, warmup=2)
+    step_ms, step_all = time_ms(lambda: training_step(forward, p), sz.reps, warmup=2)
     color, depth = forward(p)
     loss = color.sum() + depth.sum()
     bwd_ms, bwd_all = time_ms(lambda: loss.backward(retain_graph=True), sz.reps)
@@ -635,6 +846,7 @@ def phase_timing(dev, sz: Sizes, report, renderer, s, forward, calls, work,
           f"{[round(t, 3) for t in bwd_all]}")
     timings.update(train_step_ms=step_ms, train_step_runs_ms=step_all,
                    backward_ms=bwd_ms, backward_runs_ms=bwd_all)
+
 
     # Record pack, its plain version and the index_select yardstick, on the
     # main path's own inputs.
@@ -739,6 +951,25 @@ def phase_timing(dev, sz: Sizes, report, renderer, s, forward, calls, work,
         f"{k} {v:.3f}" for k, v in bwd_stages.items()))
     timings.update(backward_stages_ms=bwd_stages, backward_work=cb_work)
     return timings
+
+
+def phase_device_busy(sz: Sizes, s, forward):
+    """The card's busy time in the 1080p forward and training step under
+    torch.profiler. Last of all: after the profiler has run, the host
+    launches more slowly, which would move every timing taken after it."""
+    print("phase 7: device busy time under torch.profiler (the profiler slows "
+          "the host, so the share is a lower bound)")
+    p = leaves_of(s)
+    out = {}
+    for key, fn in (("forward", lambda: forward(s)),
+                    ("train_step", lambda: training_step(forward, p))):
+        wall, busy = device_busy(fn)
+        share = f"{busy / wall:.1%}" if busy > 0 else "not measured"
+        print(f"  {key} {sz.width}x{sz.height}: {wall:.3f} ms per call, card busy "
+              f"{busy:.3f} ms ({share})")
+        out.update({f"{key}_profiled_ms": wall,
+                    f"{key}_device_busy_ms": busy if busy > 0 else None})
+    return out
 
 
 def brute_force_layers(verts, faces, exist, ray_o, ray_d, num_layers, pixels):
@@ -1079,6 +1310,10 @@ def main() -> int:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {k.name}: {line.strip()}")
+    resources = {k.name: k.occupancy() for k in (_kernels.COMPOSITE_FWD,
+                                                 _kernels.COMPOSITE_BWD)}
+    for name, occ in resources.items():
+        print(f"  {name}: {occ}")
 
     root = os.path.dirname(os.path.abspath(__file__))
     report = {k.name: dict(name=k.name, route="cuda",
@@ -1087,6 +1322,7 @@ def main() -> int:
               for k in _kernels.KERNELS}
     phase_kernel_checks(dev, sz, report)
     phase_layered_checks(dev, sz, report)
+    phase_stress(dev, sz, report)
     renderer, s, forward, calls, work, bwd_work = phase_main_path(
         dev, sz, report, _kernels.KERNELS)
     losses = phase_training(dev, sz, renderer, s, forward)
@@ -1097,12 +1333,14 @@ def main() -> int:
     # state they ran in before the layered path existed.
     layered = phase_layered_main(dev, sz, report, _kernels.KERNELS)
     timings.update(phase_layered_timing(dev, sz, report, *layered))
+    timings.update(phase_device_busy(sz, s, forward))
 
     kernels_line = {"kernels": [report[k.name] for k in _kernels.KERNELS]}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(card=card, torch=torch.__version__, build_s=build_s,
-                       timings=timings, **kernels_line), fh, indent=1)
+                       resources=resources, timings=timings, **kernels_line),
+                  fh, indent=1)
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

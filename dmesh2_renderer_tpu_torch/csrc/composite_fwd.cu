@@ -3,11 +3,11 @@
 // Replaces: dmesh2_renderer_tpu/ops/pallas_fwd.py::_fwd_kernel (reached via
 // composite_forward). For each 16x16 tile it walks the tile's depth-sorted
 // entry range [start, start + count) of the (R, 32) record stream and, for
-// every (face, pixel) pair, evaluates Moeller-Trumbore u, v (factored
-// through scalar triple products), the 7-region barycentric clamp, the
-// per-pixel bbox reject, the closed-form AA overlap area with the unit pixel
-// box and alpha = op * ((1 - tau) * inside + tau * area); it blends front to
-// back and composites the background.
+// every (face, pixel) pair, evaluates the per-pixel bbox reject,
+// Moeller-Trumbore u, v (factored through scalar triple products), the
+// 7-region barycentric clamp, the closed-form AA overlap area with the unit
+// pixel box and alpha = op * ((1 - tau) * inside + tau * area); it blends
+// front to back and composites the background.
 //
 // Blend rule (the JAX package is the spec): a face blends iff it passes every
 // test AND the transmittance in front of it is >= T_EPS. prev_t is the
@@ -15,22 +15,30 @@
 // the tile's list) of the last blended face, and nc_tile the tile's largest
 // n_contrib.
 //
-// Layout: one block per tile, one thread per pixel, each thread blending
-// serially -- the layout the TPU kernel was rewritten away from (its
-// log-step prefix-product blend, field-major 128-entry blocks, unaligned head
-// rows and double-buffered DMA are TPU machinery and are not ported). The
-// block stages kChunk records (8 KB) in shared memory per round with
-// coalesced 16-byte loads; every thread of a warp then reads the same record
-// word (a broadcast). The block stops once no pixel still has T >= T_EPS
-// (__syncthreads_or). Pixels outside the patch (ragged right/bottom tiles)
-// never read ray_d and never blend, like the TPU kernel's zero-padded rays.
-//
-// Bound: arithmetic. Each (face, pixel) pair costs ~150 float operations of
-// pixel-dependent work (the AA area alone ~100) against 128 bytes of record
-// per face shared by 256 pixels, so the kernel sits far above the card's
-// ridge point; the early exit is what limits the pairs evaluated. This first
-// version keeps the per-face terms (edge reciprocals, cross products) in each
-// thread's arithmetic rather than precomputing them per face.
+// Bound: arithmetic. A tile's records are shared by its 256 pixels, so the
+// kernel sits far above the card's ridge point; what it pays is per-pair
+// instructions. The design (pair_math.cuh):
+//   * one block per tile, one thread per pixel blending serially -- the
+//     layout the TPU kernel was rewritten away from (its log-step
+//     prefix-product blend, field-major 128-entry blocks, unaligned head
+//     rows and DMA are TPU machinery and are not ported); each warp takes
+//     an 8x4 block of the tile's pixels (warp_pixel_x/y);
+//   * records staged kChunk (64) at a time with cp.async into one of two
+//     shared buffers while the other chunk is composited, so the copy
+//     overlaps the arithmetic; the ray-independent per-face terms (edges,
+//     cross products, bbox, AA edge reciprocals) are computed once per face
+//     when a chunk lands, one face per thread, instead of once per pair;
+//   * the bbox is tested before any other per-pair work: most pairs a pixel
+//     still needs lie outside the face's bbox and cost a handful of
+//     instructions, and a warp with no lane inside skips the rest;
+//   * the block stops once no pixel still has T >= T_EPS
+//     (__syncthreads_or at each chunk boundary), and each thread stops
+//     walking once its own pixel does;
+//   * occupancy: 64 registers and 34,820 bytes of static shared memory per
+//     block, no spills: four resident 256-thread blocks per SM
+//     (__launch_bounds__ asks for two at least).
+// Pixels outside the patch (ragged right/bottom tiles) never read ray_d and
+// never blend, like the TPU kernel's zero-padded rays.
 //
 // Built with -fmad=false: every expression below and in pair_math.cuh (the
 // per-pair arithmetic, shared with the backward compositor composite_bwd.cu)
@@ -45,9 +53,7 @@ namespace {
 
 using namespace pair_math;
 
-constexpr int kChunk = 64;
-
-__global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
+__global__ void __launch_bounds__(kPixels, 2) composite_fwd_kernel(
     const float* __restrict__ records, long long n_records,
     const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
     const float* __restrict__ ray_o, const float* __restrict__ ray_d,
@@ -56,7 +62,7 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
     float* __restrict__ color, float* __restrict__ depth,
     float* __restrict__ final_t, float* __restrict__ prev_t,
     int* __restrict__ n_contrib, int* __restrict__ nc_tile) {
-  __shared__ float4 s_rec[kChunk * kRec / 4];
+  __shared__ Stage s[2];
   __shared__ int s_nc;
 
   const int tile = blockIdx.x;
@@ -65,10 +71,9 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
   const int rem = tile - b * tiles_per_batch;
   const int ty = rem / gx;
   const int tx = rem - ty * gx;
-  const int lx = threadIdx.x % kTile;
-  const int ly = threadIdx.x / kTile;
-  const int x = tx * kTile + lx;
-  const int y = ty * kTile + ly;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int x = tx * kTile + warp_pixel_x(warp, lane);
+  const int y = ty * kTile + warp_pixel_y(warp, lane);
   const bool in_patch = x < W && y < H;
 
   // Pixel box min corner: integer image coordinates (rays go through the
@@ -88,42 +93,58 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
   const long long start = tile_starts[tile];
   long long count = tile_counts[tile];
   if (start + count > n_records) count = n_records - start;
+  const float* src = records + start * kRec;
 
   float T = 1.0f, pt = 1.0f;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f, cd = 0.0f;
   int nc = 0;
   if (threadIdx.x == 0) s_nc = 0;
 
-  for (long long base = 0; base < count; base += kChunk) {
-    // Whole-tile early exit: stop once no pixel can still blend.
-    if (!__syncthreads_or(in_patch && T >= kTEps)) break;
-    const int n = (int)(count - base < kChunk ? count - base : kChunk);
-    const float4* src = reinterpret_cast<const float4*>(records + (start + base) * kRec);
-    for (int i = threadIdx.x; i < n * (kRec / 4); i += kPixels) s_rec[i] = src[i];
+  if (count > 0) {
+    const int n0 = (int)(count < kChunk ? count : kChunk);
+    load_chunk_async(s[0].rec, src, n0);
+    wait_chunk();
     __syncthreads();
+    stage_faces(s[0], n0, ox, oy, oz);
+  }
+  int buf = 0;
+  for (long long base = 0; base < count; base += kChunk, buf ^= 1) {
+    // The chunk's faces are staged; every reader of the other buffer is done.
+    __syncthreads();
+    const int n = (int)(count - base < kChunk ? count - base : kChunk);
+    const long long next = base + kChunk;
+    const int n_next = (int)(next >= count ? 0 : (count - next < kChunk ? count - next : kChunk));
+    if (n_next > 0) load_chunk_async(s[buf ^ 1].rec, src + next * kRec, n_next);
 
     if (in_patch && T >= kTEps) {
-      const float* rec_base = reinterpret_cast<const float*>(s_rec);
+      const Stage& st = s[buf];
       for (int j = 0; j < n; ++j) {
         if (T < kTEps) break;
-        const float* rec = rec_base + j * kRec;
-        const Pair q = pair_quantities(rec, ox, oy, oz, rdx, rdy, rdz, px0,
-                                       py0, tau, one_minus_tau);
-        if (!q.passes) continue;
+        const float* rec = st.rec + j * kRec;
+        Pair q;
+        if (!pair_quantities(st.face[j], rec, rdx, rdy, rdz, px0, py0, tau,
+                             one_minus_tau, q))
+          continue;
 
-        const Interp s = interpolate(rec, q.uc, q.vc);
+        const Interp si = interpolate(rec, q.uc, q.vc);
         const float intense = rec[kIn];
         const float alpha = rec[kOp] * q.ratio;
         const float wgt = alpha * T;
-        cr = cr + (s.m_r * intense) * wgt;
-        cg = cg + (s.m_g * intense) * wgt;
-        cb = cb + (s.m_b * intense) * wgt;
-        cd = cd + s.i_d * wgt;
+        cr = cr + (si.m_r * intense) * wgt;
+        cg = cg + (si.m_g * intense) * wgt;
+        cb = cb + (si.m_b * intense) * wgt;
+        cd = cd + si.i_d * wgt;
         pt = T;
         T = T * (1.0f - alpha);
         nc = (int)(base + j) + 1;
       }
     }
+
+    if (n_next == 0) break;
+    wait_chunk();
+    // Whole-tile early exit: stop once no pixel can still blend.
+    if (!__syncthreads_or(in_patch && T >= kTEps)) break;
+    stage_faces(s[buf ^ 1], n_next, ox, oy, oz);
   }
 
   if (in_patch) {
@@ -157,6 +178,23 @@ extern "C" int composite_fwd_launch(
       one_minus_tau, (float*)color, (float*)depth, (float*)final_t,
       (float*)prev_t, (int*)n_contrib, (int*)nc_tile);
   return (int)cudaGetLastError();
+}
+
+// Registers, static and dynamic shared memory, local (spill) bytes per
+// thread and resident 256-thread blocks per SM of the kernel, into out[5].
+extern "C" int composite_fwd_occupancy(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, composite_fwd_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, composite_fwd_kernel,
+                                                      kPixels, 0);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = 0;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = blocks;
+  return (int)err;
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -64,9 +64,9 @@ class Kernel:
         self._lib = None
 
     def library_path(self) -> Path:
-        # The name hashes the source, every shared header and the flags.
+        # The name hashes the source, every header beside it and the flags.
         h = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(CSRC.glob("*.cuh")):
+        for header in sorted(self.source.parent.glob("*.cuh")):
             h.update(header.read_bytes())
         h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
@@ -111,6 +111,23 @@ class Kernel:
             msg = self._lib.cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg} ({err})")
         self.launches += 1
+
+    def occupancy(self) -> dict:
+        """The kernel's resources on the current card, from its
+        ``<name>_occupancy`` C function (the compositors have one):
+        registers per thread, static and dynamic shared memory and local
+        (spill) bytes, and resident 256-thread blocks per SM."""
+        lib = self.load()
+        fn = getattr(lib, f"{self.name}_occupancy")
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 5)()
+        err = fn(out)
+        if err != 0:
+            msg = lib.cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.name} occupancy query failed: {msg} ({err})")
+        return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes",
+                         "blocks_per_sm"), out))
 
 
 PACK_STREAM = Kernel("pack_stream", "pack_stream.cu", [
@@ -185,6 +202,13 @@ def check_inputs(device, specs) -> None:
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(name, t) -> None:
+    """Raise unless ``t``'s data starts on a 16-byte boundary (the
+    compositors copy records with 16-byte cp.async)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def current_stream(device) -> ctypes.c_void_p:

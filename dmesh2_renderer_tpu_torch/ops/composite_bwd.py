@@ -300,6 +300,7 @@ def composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
         ("g_depth", g_depth, f32, pix),
         ("g_final_t", g_final_t, f32, pix),
     ])
+    _kernels.check_aligned("records", records)
     out = torch.zeros((r, GRAD_RECORD_WIDTH), dtype=f32, device=dev)
     if n_tiles == 0 or r == 0:
         return out

@@ -262,6 +262,7 @@ def composite_forward(records, tile_starts, tile_counts, ray_o_cam, ray_d,
         ("background", background, f32, (3,)),
         ("patch_min", patch_min, i32, (b, 2)),
     ])
+    _kernels.check_aligned("records", records)
     color = torch.empty((b, h, w, 3), dtype=f32, device=dev)
     depth, final_t, prev_t = (torch.empty((b, h, w), dtype=f32, device=dev)
                               for _ in range(3))
