@@ -9,8 +9,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Build every CUDA kernel from ``dmesh2_renderer_tpu_torch/csrc`` (one nvcc
    per source, all at once) and print the card's name and power limit, the
-   ptxas resource lines and each compositor's registers, shared memory and
-   resident blocks per SM.
+   ptxas resource lines and each kernel's registers, shared memory, spill
+   and resident blocks per SM (the peel's for its 8-slot instance).
 2. Hold each kernel against its plain PyTorch version on the card, on the
    inputs the entry points give it (recorded as they call the kernel
    wrappers): icosphere(3), 4 views at 512x512 through one ragged 376x312
@@ -30,6 +30,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    frame, 3 and 8 layers; there the card's LayeredRenderer is also held
    against the numpy brute force of tests/test_peel.py (under 1% of pixels
    may differ).
+2d. The peel kernel against its plain version (layers and counts exactly
+   equal on every tile) on an adversarial scene: tet_grid(12) seen from two
+   eyes inside the grid (one on three grid planes, so faces there are
+   edge-on and rays graze the planes beside them) and one outside eye on two
+   grid planes looking along them, through a ragged 333x201 frame, at 1, 8
+   and 16 layers, and with the rays scaled by 2 (longer than the skip bound
+   assumes: those pixels skip nothing) and by 0.5. The plain version's
+   counts of the pairs the kernel's skip rule drops and of the hits its
+   insertion gate keeps out are printed.
 2c. Both compositors against their plain versions on a synthetic stress
    scene (2 views x 3,000 small faces piled over a few tiles of a ragged
    72x40 window; bbox edges on pixel boundaries; entries no pixel blends
@@ -62,15 +71,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1920x1080, 8 layers, with every launch count set to 0 just before and
    read just after; the peel must have launched, nothing may be truncated,
    ``counts.max()`` must be 8 and every layer id -1 or an existing face.
+   ``pack_stream``'s whole (R, 32) table, sentinel tail included, must equal
+   its plain version (phase 3).
    72 sampled pixels must equal the numpy brute force on the port's own
    rays (except at an exact t tie) with non-decreasing t along the layers,
    and the kernel must equal its plain version on every 63rd tile, also
    when run on those tiles alone.
 6. Layered timing: ``generate`` and Mpix/s, its stages (projection, min
-   depth, binning, peel), the peel kernel beside its bound (operations and
-   hits counted by the plain version over every tile, which is also held
-   against the kernel there) and beside its plain version, over every tile
-   and on the sampled tiles.
+   depth, binning, peel), the peel kernel beside its two bounds (the full
+   scan the JAX kernel does, and the work left after the kernel's skip
+   rule; entries, pairs, hits, skipped pairs and gated hits counted by the
+   plain version over every tile, which is also held against the kernel
+   there) and beside its plain version, over every tile and on the sampled
+   tiles.
 7. The card's busy time in the 1080p forward and training step: the union
    of the device intervals torch.profiler records, beside the wall time of
    the profiled calls.
@@ -169,6 +182,13 @@ class Sizes:
     layered_exist_frac: float = 0.5
     layered_tile_stride: int = 63                   # every 63rd tile: >= 256 of 16,320
     layered_pixels: int = 64
+    # Adversarial peel scene (phase 2d): tet_grid(adv_res), whose grid
+    # planes lie at multiples of 2.4 / adv_res from -1.2, three views.
+    adv_res: int = 12
+    adv_frame: tuple = (333, 201)                   # width, height (ragged)
+    adv_layers: tuple = (1, 8, 16)
+    adv_capacity: int = 1 << 21
+    adv_ray_scales: tuple = (2.0, 0.5)
 
 
 def nvidia_smi_line() -> str:
@@ -318,12 +338,14 @@ def compare_composite(kernel_out, plain_out, label):
     return max(errs.values())
 
 
-def compare_pack(kernel_rec, plain_rec, label):
+def compare_pack(kernel_rec, plain_rec, label, tail):
+    """The whole (R, 32) table must equal the plain version's, the ``tail``
+    sentinel rows included."""
     if not torch.equal(kernel_rec, plain_rec):
         err = float((kernel_rec - plain_rec).abs().max())
         raise AssertionError(f"{label}: pack_stream differs from plain, max {err}")
-    print(f"  {label}: pack_stream equals its plain version "
-          f"({kernel_rec.shape[0]} records)")
+    print(f"  {label}: pack_stream equals its plain version on all "
+          f"{kernel_rec.shape[0]} records ({tail} of them the sentinel tail)")
     return 0.0
 
 
@@ -336,7 +358,8 @@ def check_kernels(calls, label, report, work=None):
     from dmesh2_renderer_tpu_torch.ops.composite_fwd import composite_forward_plain
 
     pack_args, records = calls["pack_stream"]
-    err = compare_pack(records, pack_stream_plain(*pack_args), label)
+    tail = int((pack_args[0] == pack_args[6].numel()).sum())
+    err = compare_pack(records, pack_stream_plain(*pack_args), label, tail)
     report["pack_stream"]["max_abs_err"] = max(report["pack_stream"]["max_abs_err"], err)
     comp_args, out = calls["composite_forward"]
     plain = composite_forward_plain(*comp_args, work=work)
@@ -865,9 +888,9 @@ def phase_timing(dev, sz: Sizes, report, renderer, s, forward, calls, work,
     pack_bound = pack_bytes / HBM_BYTES_PER_S * 1e3
     report["pack_stream"].update(ms=pack_ms, plain_ms=pack_plain_ms, bound_ms=pack_bound,
                                  bound_by="bytes", library_ms=lib_ms)
-    print(f"  pack_stream: {pack_ms:.3f} ms, plain {pack_plain_ms:.3f} ms, "
-          f"index_select {lib_ms:.3f} ms, bound {pack_bound:.3f} ms "
-          f"({r_entries} records, {pack_bytes} bytes)")
+    print(f"  pack_stream: {pack_ms:.3f} ms ({pack_bytes / pack_ms / 1e9:.3f} TB/s), "
+          f"plain {pack_plain_ms:.3f} ms, index_select {lib_ms:.3f} ms, bound "
+          f"{pack_bound:.3f} ms ({r_entries} records, {pack_bytes} bytes)")
 
     # Tile compositor on the main path's own inputs.
     comp_args, _ = calls["composite_forward"]
@@ -1037,11 +1060,12 @@ def compare_peel(kernel_out, plain_out, label, report, pixels=None):
 
 
 def peel_generate(lr, idx, scene, num_layers, label, report,
-                  may_truncate=False):
+                  may_truncate=False, work=None):
     """``LayeredRenderer.generate`` on the card, recording the peel
     wrapper's call, with the kernel's output held against its plain
-    version on the same inputs. Raises on truncated binning unless
-    ``may_truncate``. Returns (layers, counts, peel call)."""
+    version on the same inputs (every tile; ``work`` is passed on to it).
+    Raises on truncated binning unless ``may_truncate``. Returns (layers,
+    counts, peel call)."""
     from dmesh2_renderer_tpu_torch import functional
     from dmesh2_renderer_tpu_torch.ops.peel import peel_layers_plain
 
@@ -1051,7 +1075,8 @@ def peel_generate(lr, idx, scene, num_layers, label, report,
     if truncated and not may_truncate:
         raise AssertionError(f"{label}: binning truncated {truncated} entries")
     args, out = calls["peel_layers"]
-    compare_peel(out, peel_layers_plain(*args), f"{label} L={num_layers}", report)
+    compare_peel(out, peel_layers_plain(*args, work=work), f"{label} L={num_layers}",
+                 report)
     return layers, counts, calls["peel_layers"]
 
 
@@ -1095,6 +1120,51 @@ def phase_layered_checks(dev, sz: Sizes, report):
                   f"{int(bad.sum())} of {bad.size} pixels differ")
             if not bad.mean() < 0.01 or counts.max() == 0:
                 raise AssertionError("LayeredRenderer differs from the brute force")
+
+
+def phase_peel_adversarial(dev, sz: Sizes, report):
+    """The peel kernel against its plain version, every tile, on views that
+    stress the skip rule: eyes inside the grid and on
+    its planes (faces edge-on, grazing rays, faces across the camera plane),
+    a ragged frame, 1, 8 and 16 layers, and rays scaled off unit length."""
+    from dmesh2_renderer_tpu_torch import LayeredRenderer, RasterConfig
+    from dmesh2_renderer_tpu_torch.ops.peel import peel_layers, peel_layers_plain
+    from dmesh2_renderer_tpu_torch.utils.meshes import look_at, perspective, tet_grid
+
+    w, h = sz.adv_frame
+    step = 2.4 / sz.adv_res
+    # Inside, on the planes x, y and z of grid lines 7, 4 and 6; inside, off
+    # every plane; outside, on the planes y and z of lines 8 and 6, looking
+    # along both.
+    eyes = ((-1.2 + 7 * step, -1.2 + 4 * step, -1.2 + 6 * step),
+            (-0.47, 0.31, 0.13), (2.5, -1.2 + 8 * step, -1.2 + 6 * step))
+    targets = ((1.0, 0.3, -0.7), (-1.0, -0.2, 0.9), (0.0, -1.2 + 8 * step, 0.0))
+    verts, tets, faces, face_tets, tet_faces = tet_grid(sz.adv_res)
+    exist = (np.random.default_rng(5).uniform(size=faces.shape[0]) < 0.5).astype(np.int32)
+    mv = np.stack([look_at(e, c) for e, c in zip(eyes, targets)])
+    proj = np.stack([perspective(70.0, w / h)] * len(eyes))
+    print(f"phase 2d: peel kernel vs plain version on every tile, adversarial "
+          f"views of tet_grid({sz.adv_res}) ({faces.shape[0]} faces, "
+          f"{int(exist.sum())} existing), ragged {w}x{h}, L in {sz.adv_layers}")
+    lr = LayeredRenderer(mv, proj, w, h, config=RasterConfig(
+        binning_capacity=sz.adv_capacity, max_tiles_per_face=64,
+        num_giant_faces=4096))
+    scene = (verts, faces, tets, face_tets, tet_faces, exist)
+    idx = list(range(len(eyes)))
+    for num_layers in sz.adv_layers:
+        work = {}
+        _, counts, call = peel_generate(lr, idx, scene, num_layers, "adversarial",
+                                        report, may_truncate=True, work=work)
+        print(f"    binning num_rendered={int(lr.last_aux[0])} num_truncated="
+              f"{int(lr.last_aux[1])}; pixels with a layer {int((counts > 0).sum())}; "
+              f"plain version's work {({k: int(v) for k, v in work.items()})}")
+        if int(counts.max()) < min(num_layers, 2):
+            raise AssertionError("adversarial scene gives too few layers")
+    args = list(call[0])
+    for scale in sz.adv_ray_scales:
+        args[7] = call[0][7] * scale
+        compare_peel(peel_layers(*args), peel_layers_plain(*args),
+                     f"adversarial L={num_layers}, rays x {scale}", report)
 
 
 def layered_scene(sz: Sizes):
@@ -1207,9 +1277,15 @@ def peel_bound(args, work, n_slots):
     """Least time for the peel of these inputs (``work`` from the plain
     version): entry_bf of every walked entry, the face tables, the tile
     ranges and rays read once, layers and counts written once; against the
-    per-entry, per-pair and per-hit float operations of csrc/peel.cu."""
+    per-entry, per-pair and per-hit float operations of csrc/peel.cu. Two
+    bounds: the full scan (every pair, the JAX kernel's work) and the work
+    left after the kernel's skip rule (the skip bound per entry, one
+    comparison per skipped pair).
+
+    Returns (full-scan ms, its limit, after-skip ms, its limit, counts)."""
     from dmesh2_renderer_tpu_torch.ops.peel import (
-        OPS_PER_ENTRY, OPS_PER_HIT_SLOT, OPS_PER_PAIR)
+        OPS_PER_ENTRY, OPS_PER_ENTRY_BOUND, OPS_PER_HIT_SLOT, OPS_PER_PAIR,
+        OPS_PER_SKIPPED_PAIR)
 
     _, faces, verts, exist, starts, counts, ray_o, ray_d, _, _, n_layers = args
     w = {k: int(v) for k, v in work.items()}
@@ -1217,11 +1293,19 @@ def peel_bound(args, work, n_slots):
     nbytes = (int(counts.sum()) * 4 + faces.numel() * 4 + verts.numel() * 4
               + exist.numel() * 4 + (starts.numel() + counts.numel()) * 4
               + ray_o.numel() * 4 + ray_d.numel() * 4 + n_pix * (n_layers + 1) * 4)
-    ops = (w["entries"] * OPS_PER_ENTRY + w["pairs"] * OPS_PER_PAIR
-           + w["hits"] * OPS_PER_HIT_SLOT * n_slots)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
-        dict(w, bytes=nbytes, ops=ops)
+    hit_ops = w["hits"] * OPS_PER_HIT_SLOT * n_slots
+    ops = w["entries"] * OPS_PER_ENTRY + w["pairs"] * OPS_PER_PAIR + hit_ops
+    ops_left = (w["entries"] * (OPS_PER_ENTRY + OPS_PER_ENTRY_BOUND)
+                + (w["pairs"] - w["skipped"]) * OPS_PER_PAIR
+                + w["skipped"] * OPS_PER_SKIPPED_PAIR + hit_ops)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+
+    def bound(n_ops):
+        t_ops = n_ops / FP32_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    return (*bound(ops), *bound(ops_left),
+            dict(w, bytes=nbytes, ops=ops, ops_after_skip=ops_left))
 
 
 def phase_layered_timing(dev, sz: Sizes, report, lr, scene, idx, peel_call, tiles):
@@ -1249,12 +1333,17 @@ def phase_layered_timing(dev, sz: Sizes, report, lr, scene, idx, peel_call, tile
     work = {}
     plain_full = peel_layers_plain(*args, work=work)
     compare_peel(peel_call[1], plain_full, f"main {w}x{h}, every tile", report)
-    bound, bound_by, peel_work = peel_bound(args, work, peel_instance(n_layers))
+    bound, bound_by, left, left_by, peel_work = peel_bound(args, work,
+                                                           peel_instance(n_layers))
     report["peel"].update(ms=peel_ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by=bound_by, library_ms=None)
-    print(f"  peel: {peel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
-          f"({bound_by}; {peel_work}); on the {tiles.numel()} sampled tiles: kernel "
-          f"{sub_ms:.3f} ms, plain {sub_plain_ms:.3f} ms")
+    pairs, hits = peel_work["pairs"], peel_work["hits"]
+    print(f"  peel: {peel_ms:.3f} ms, plain {plain_ms:.3f} ms, full-scan bound "
+          f"{bound:.3f} ms ({bound_by}), after-skip bound {left:.3f} ms ({left_by}); "
+          f"skipped {peel_work['skipped'] / pairs:.1%} of {pairs} pairs, gated "
+          f"{peel_work['gated'] / hits:.1%} of {hits} hits ({peel_work}); on the "
+          f"{tiles.numel()} sampled tiles: kernel {sub_ms:.3f} ms, plain "
+          f"{sub_plain_ms:.3f} ms")
 
     # Where generate's time goes: each stage at the main path's inputs.
     b_mv, b_proj = lr.mv[idx], lr.proj[idx]
@@ -1285,6 +1374,7 @@ def phase_layered_timing(dev, sz: Sizes, report, lr, scene, idx, peel_call, tile
           f"version's (R, 16) table, pack_peel_stream, would take {pack_ms:.3f} ms]")
     return dict(generate_ms=gen_ms, generate_runs_ms=gen_all, generate_mpix_per_s=mpix,
                 layered_stages_ms=stages, peel_pack_ms=pack_ms, peel_work=peel_work,
+                peel_bound_after_skip_ms=left,
                 peel_sampled_tiles=tiles.numel(), peel_sampled_ms=sub_ms,
                 peel_sampled_plain_ms=sub_plain_ms)
 
@@ -1310,8 +1400,7 @@ def main() -> int:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {k.name}: {line.strip()}")
-    resources = {k.name: k.occupancy() for k in (_kernels.COMPOSITE_FWD,
-                                                 _kernels.COMPOSITE_BWD)}
+    resources = {k.name: k.occupancy() for k in _kernels.KERNELS}
     for name, occ in resources.items():
         print(f"  {name}: {occ}")
 
@@ -1322,6 +1411,7 @@ def main() -> int:
               for k in _kernels.KERNELS}
     phase_kernel_checks(dev, sz, report)
     phase_layered_checks(dev, sz, report)
+    phase_peel_adversarial(dev, sz, report)
     phase_stress(dev, sz, report)
     renderer, s, forward, calls, work, bwd_work = phase_main_path(
         dev, sz, report, _kernels.KERNELS)

@@ -114,9 +114,9 @@ class Kernel:
 
     def occupancy(self) -> dict:
         """The kernel's resources on the current card, from its
-        ``<name>_occupancy`` C function (the compositors have one):
-        registers per thread, static and dynamic shared memory and local
-        (spill) bytes, and resident 256-thread blocks per SM."""
+        ``<name>_occupancy`` C function: registers per thread, static and
+        dynamic shared memory and local (spill) bytes, and resident
+        256-thread blocks per SM (the peel's for its 8-slot instance)."""
         lib = self.load()
         fn = getattr(lib, f"{self.name}_occupancy")
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)]

@@ -24,7 +24,10 @@ on CPU tensors. The kernel gathers each entry's face straight from
 ``verts``/``faces``/``faces_existence`` by ``entry_bf``; the plain version
 reads the same values from the (R, 16) table of :func:`pack_peel_stream`,
 the JAX package's record layout. Both compute every float in the same
-operation order, so they agree bit for bit.
+operation order, so they agree bit for bit. The kernel leaves out the pairs
+that provably cannot change the output (:func:`skip_bound`); the plain
+version scans them all, counts them, and drops them too with
+``prune=True``.
 """
 
 from __future__ import annotations
@@ -57,9 +60,51 @@ LAYER_INSTANCES = (1, 2, 4, 8, 16)
 # its test and reciprocal, t, u, v and the hit tests (35). Per hit, per
 # slot of the block-local list: the tie test, the order test and two
 # selects (4). The merge of each block's list into the slots is not counted.
+# These are the JAX kernel's work, a full scan: the full-scan bound.
 OPS_PER_ENTRY = 23
 OPS_PER_PAIR = 35
 OPS_PER_HIT_SLOT = 4
+# The work left after the skip rule (the after-skip bound): per entry also
+# the skip bound (two edge norms with their guards 16, the normal and its
+# norm 16, the quotient, its scale, flush and clamp 8), per skipped pair
+# its one comparison; the other pairs as above.
+OPS_PER_ENTRY_BOUND = 40
+OPS_PER_SKIPPED_PAIR = 1
+
+# The skip bound of csrc/peel.cu (its header note derives it): constants
+# and a float32 mirror in the kernel's operation order.
+EDGE_MIN = 2.0 ** -40
+EDGE_MAX = 2.0 ** 40
+NORMAL_FLOOR = 2.0 ** -49
+DET_SLACK = 2.0 ** -20
+BOUND_SCALE = 1.0 - 2.0 ** -18
+BOUND_FLUSH = 2.0 ** -100
+RAY_NORM2_MAX = 1.0 + 2.0 ** -20
+
+
+def _sqrt(x):
+    # Correctly rounded float32 square root (as CUDA's sqrtf): through
+    # float64, which rounds exactly once more; torch's float32 sqrt on the
+    # CPU may differ in the last bit.
+    return torch.sqrt(x.double()).float()
+
+
+def skip_bound(e1x, e1y, e1z, e2x, e2y, e2z, qe2):
+    """``lb`` of ``csrc/peel.cu::skip_bound``, bit for bit: every hit of the
+    face (edges ``e1``, ``e2``, ``qe2 = (t0 x e1) . e2``, all float32) by a
+    ray with ``|d|^2 <= RAY_NORM2_MAX`` has a computed t >= lb."""
+    n1 = _sqrt(e1x * e1x + e1y * e1y + e1z * e1z)
+    n2 = _sqrt(e2x * e2x + e2y * e2y + e2z * e2z)
+    sane = (n1 >= EDGE_MIN) & (n1 <= EDGE_MAX) & (n2 >= EDGE_MIN) & (n2 <= EDGE_MAX)
+    nx = e1y * e2z - e1z * e2y
+    ny = e1z * e2x - e1x * e2z
+    nz = e1x * e2y - e1y * e2x
+    nn = torch.fmax(_sqrt(nx * nx + ny * ny + nz * nz),
+                    torch.tensor(NORMAL_FLOOR, dtype=nx.dtype, device=nx.device))
+    lb = qe2.abs() / (nn + n1 * n2 * DET_SLACK) * BOUND_SCALE
+    lb = torch.where(lb < BOUND_FLUSH, 0.0, lb)
+    lb = torch.fmin(lb, torch.tensor(_INF, dtype=lb.dtype, device=lb.device))
+    return torch.where(sane, lb, 0.0)
 
 
 def pack_peel_stream(entry_bf, verts, faces, faces_existence):
@@ -80,11 +125,13 @@ def pack_peel_stream(entry_bf, verts, faces, faces_existence):
 
 
 def _peel_group(records, starts, counts, ro, rdx, rdy, rdz, in_frame,
-                num_layers: int, work):
+                num_layers: int, work, prune: bool):
     """Peel G tiles together; every tensor has the tile axis first.
 
     ``ro``: (G, 3) origins; ``rdx, rdy, rdz``: (G, 1, 256) rays, zero for
     pixels outside the frame (they never hit: the determinant is 0).
+    ``prune`` drops the pairs the kernel's skip rule drops and the hits its
+    insertion gate keeps out of the block's list.
     Returns (slot ids (G, L, 256) f32, counts (G, 256) f32).
     """
     g = starts.shape[0]
@@ -101,6 +148,8 @@ def _peel_group(records, starts, counts, ro, rdx, rdy, rdz, in_frame,
     neg1 = torch.full((g, 1, TILE_PIXELS), -1.0, device=dev)
     slot_t = [inf] * num_layers
     slot_id = [neg1] * num_layers
+    # Pixels whose ray is longer than the skip bound assumes never skip.
+    bounded = rdx * rdx + rdy * rdy + rdz * rdz <= RAY_NORM2_MAX
 
     for i in range(n_steps):
         rows = (blk0 + i)[:, None] * STREAM_BLOCK + lane[None, :]      # (G, C)
@@ -129,15 +178,27 @@ def _peel_group(records, starts, counts, ro, rdx, rdy, rdz, in_frame,
         denom = pvx * e1x + pvy * e1y + pvz * e1z
         ok = denom != 0.0
         inv = 1.0 / torch.where(ok, denom, torch.ones_like(denom))
-        tt = (qvx * e2x + qvy * e2y + qvz * e2z) * inv
+        qe2 = qvx * e2x + qvy * e2y + qvz * e2z
+        tt = qe2 * inv
         u = (pvx * t0x + pvy * t0y + pvz * t0z) * inv
         v = (qvx * rdx + qvy * rdy + qvz * rdz) * inv
         valid = (ok & (tt >= 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
                  & live)
+        # The kernel's skip rule (t >= lb >= the slot threshold the block
+        # started with) and its insertion gate (t >= that threshold).
+        thr = torch.where(bounded, slot_t[-1], float("inf"))
+        skip = thr <= skip_bound(e1x, e1y, e1z, e2x, e2y, e2z, qe2)
+        hit = valid & (tt < _INF)
+        gated = hit & ~skip & (tt >= thr)
         if work is not None:
+            pairs = live & in_frame
             work["entries"] += live.sum()
-            work["pairs"] += (live & in_frame).sum()
-            work["hits"] += (valid & (tt < _INF)).sum()
+            work["pairs"] += pairs.sum()
+            work["hits"] += hit.sum()
+            work["skipped"] += (pairs & skip).sum()
+            work["gated"] += gated.sum()
+        if prune:
+            valid = valid & ~skip & ~gated
         tt = torch.where(valid, tt, _INF)                              # (G, C, N)
         fidb = fid.expand_as(tt)
 
@@ -167,7 +228,7 @@ def _peel_group(records, starts, counts, ro, rdx, rdy, rdz, in_frame,
 def peel_layers_plain(entry_bf, faces, verts, faces_existence, tile_starts,
                       tile_counts, ray_o_cam, ray_d, width: int, height: int,
                       num_layers: int, tiles=None, group: int = 256,
-                      work: dict | None = None):
+                      work: dict | None = None, prune: bool = False):
     """Plain version of the peel kernel (any device).
 
     ``tiles`` (int tensor of tile indices) restricts the work to those
@@ -175,7 +236,12 @@ def peel_layers_plain(entry_bf, faces, verts, faces_existence, tile_starts,
     ``group`` at a time: each step of a group holds (G, 128, 256) float
     temporaries. If ``work`` is a dict it receives, as 0-d int64 tensors,
     the existing-face ``entries`` walked, the (entry, in-frame pixel)
-    ``pairs`` tested and the ``hits`` found.
+    ``pairs`` of a full scan and the ``hits`` found, the pairs the kernel's
+    skip rule ``skipped`` (the carried L-th slot at the block's start <=
+    :func:`skip_bound`) and the hits of the other pairs that its insertion
+    gate keeps out of the block's list (``gated``: t >= that slot).
+    ``prune=True`` drops both, as the kernel does; the result is the same
+    (the kernel's header note proves it).
     Returns (layers (B, H, W, L) int32, counts (B, H, W) int32).
     """
     b = ray_d.shape[0]
@@ -186,7 +252,7 @@ def peel_layers_plain(entry_bf, faces, verts, faces_existence, tile_starts,
                         device=dev)
     counts = torch.zeros((b, height, width), dtype=torch.int32, device=dev)
     if work is not None:
-        for key in ("entries", "pairs", "hits"):
+        for key in ("entries", "pairs", "hits", "skipped", "gated"):
             work[key] = torch.zeros((), dtype=torch.int64, device=dev)
     tile_ids = (torch.arange(b * gx * gy, device=dev) if tiles is None
                 else tiles.to(device=dev, dtype=torch.int64))
@@ -199,7 +265,7 @@ def peel_layers_plain(entry_bf, faces, verts, faces_existence, tile_starts,
         ids, cnt = _peel_group(
             records, tile_starts.long()[tg], tile_counts.long()[tg],
             ray_o_cam[bt], *(rd[:, None, :, c] for c in range(3)),
-            in_frame[:, None, :], num_layers, work)
+            in_frame[:, None, :], num_layers, work, prune)
         sel = in_frame.nonzero(as_tuple=True)
         pix = (bt[:, None].expand_as(x)[sel], y[sel], x[sel])
         layers[pix] = ids.permute(0, 2, 1)[sel].to(torch.int32)

@@ -98,3 +98,32 @@ def test_record_pack_matches_jax_exactly():
                          t["faces_opacity"], t["faces_intense"], torch.as_tensor(aa))
     assert tuple(got.shape) == want.shape == (1024, 32)
     np.testing.assert_array_equal(to_numpy(got), want)
+
+
+def test_record_pack_sentinel_tail_reads_the_last_row():
+    """Sentinel entries (== B*F) past the live ones are packed as row
+    B*F - 1, as the JAX gather_stream reads them: every tail row equals the
+    JAX gather of entry B*F - 1."""
+    s, verts_ndc, aa, _, _ = _inputs()
+    bf = B * aa.shape[1]
+    entry = np.concatenate([np.arange(0, bf, 7, dtype=np.int32),
+                            np.full(256, bf, np.int32)])
+    entry = np.concatenate([entry, np.full((-entry.shape[0]) % 128, bf, np.int32)])
+    v9, c9, z = JB.gather_face_corners(
+        jnp.asarray(s["verts"]), jnp.asarray(s["verts_color"]),
+        jnp.asarray(verts_ndc), jnp.asarray(s["faces"]))
+    table = JB.build_face_table_from_corners(
+        v9, c9, z, jnp.asarray(s["faces_opacity"]), jnp.asarray(s["faces_intense"]),
+        jnp.asarray(aa), interpret=True)
+    last = np.asarray(JB.unblock_stream(JB.gather_stream(
+        table, jnp.full((128,), bf - 1, jnp.int32))))[0]
+    t = scene_from_jax({k: s[k] for k in ("verts", "faces", "verts_color",
+                                          "faces_opacity", "faces_intense")}, "cpu")
+    got = to_numpy(TB.pack_stream_plain(
+        torch.as_tensor(entry), t["faces"], t["verts"], t["verts_color"],
+        torch.as_tensor(verts_ndc), t["faces_opacity"], t["faces_intense"],
+        torch.as_tensor(aa)))
+    tail = entry == bf
+    assert tail.sum() >= 256 and got.shape == (entry.shape[0], 32)
+    np.testing.assert_array_equal(got[tail], np.broadcast_to(last, (int(tail.sum()), 32)))
+    assert np.any(last != 0)

@@ -1,7 +1,10 @@
 """The port's depth peel (ops/peel.py) and its scene utilities vs the JAX
 package: tet_grid, check_layered_args, pack_peel_stream and the plain peel
 against the JAX peel_layers (Pallas in interpret mode) on identical
-streams, tile ranges and rays."""
+streams, tile ranges and rays; the kernel's skip bound (mirrored in
+ops/peel.py) on adversarial faces and rays, the plain peel with the
+kernel's skip rule and insertion gate applied, and their work counts
+against numpy."""
 
 import functools
 
@@ -88,15 +91,29 @@ def test_check_layered_args_matches_jax(name):
     assert name in str(got.value)
 
 
-@functools.lru_cache(maxsize=1)
-def _binned_scene():
-    """tet_grid(2), a third of the faces deleted, two views, binned by min
-    depth as the peel pipeline does, on the JAX side. Returns numpy arrays
-    and the JAX stream."""
-    verts, _, faces, _, _ = JM.tet_grid(2)
+# Two views from inside tet_grid(3): the first eye lies on the grid planes
+# x = -0.4 and z = 0.4, so faces there are seen edge-on (their plane passes
+# through the camera) and rays graze the planes next to them.
+INSIDE_EYES = ((-0.4, 0.1, 0.4), (0.3, -0.2, -0.1))
+INSIDE_TARGETS = ((1.0, 0.35, -0.9), (-1.0, 0.6, 0.5))
+
+
+def _inside_cameras():
+    mv = np.stack([JM.look_at(e, c) for e, c in zip(INSIDE_EYES, INSIDE_TARGETS)])
+    proj = np.stack([JM.perspective(70.0, W / H)] * B)
+    return mv, proj
+
+
+@functools.lru_cache(maxsize=2)
+def _binned_scene(inside=False):
+    """tet_grid(2), a third of the faces deleted, two orbit views (or
+    tet_grid(3) seen from inside, ``INSIDE_EYES``), binned by min depth as
+    the peel pipeline does, on the JAX side. Returns numpy arrays and the
+    JAX stream."""
+    verts, _, faces, _, _ = JM.tet_grid(3 if inside else 2)
     exist = np.ones(faces.shape[0], np.int32)
     exist[::3] = 0
-    mv, proj = JM.orbit_cameras(B)
+    mv, proj = _inside_cameras() if inside else JM.orbit_cameras(B)
     ray_o, ray_d = JG.init_rays(jnp.asarray(mv), jnp.asarray(proj), W, H)
     vndc, vimg = JG.compute_verts_ndc_image(jnp.asarray(verts), jnp.asarray(mv),
                                             jnp.asarray(proj), W, H)
@@ -132,9 +149,9 @@ def test_pack_peel_stream_matches_jax():
     np.testing.assert_array_equal(to_numpy(got), want)
 
 
-@functools.lru_cache(maxsize=4)
-def _jax_peel(num_layers):
-    a, stream = _binned_scene()
+@functools.lru_cache(maxsize=8)
+def _jax_peel(num_layers, inside=False):
+    a, stream = _binned_scene(inside)
     layers, counts = JP.peel_layers(
         stream, jnp.asarray(a["starts"]), jnp.asarray(a["counts"]),
         jnp.asarray(a["ray_o"]), jnp.asarray(a["ray_d"]), W, H, num_layers,
@@ -231,3 +248,207 @@ def test_num_layers_outside_the_kernel_instances_raises():
     a, _ = _binned_scene()
     with pytest.raises(ValueError, match="num_layers"):
         TP.peel_layers(*_port_args(a), 0)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's skip bound (csrc/peel.cu, mirrored in ops/peel.py).
+
+def _adversarial_pairs(case, n=400, seed=0):
+    """Faces (n, 3, 3), one ray origin and n rays, ray i aimed at a point
+    of face i, made with numpy from ``seed`` (float32):
+
+    * ``plane_through_camera``: each face's plane passes within 10^-9..10^-3
+      of the origin, so the rays aimed at it are nearly in its plane;
+    * ``grazing``: planes at 10^-6..1 from the origin with the faces 5..50
+      away along them, so the rays meet them at small angles;
+    * ``slivers``: the third vertex 10^-8..10^-2 (relative) off the line of
+      the other two;
+    * ``random``: faces and aim points scattered in front of the origin.
+
+    Rays are normalised as ``init_rays`` does (``d / (|d| + 1e-6)``).
+    """
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.0, 1.0, 3)
+
+    def basis():
+        nrm = rng.normal(size=(n, 3))
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        p = np.cross(nrm, rng.normal(size=(n, 3)))
+        p /= np.linalg.norm(p, axis=1, keepdims=True)
+        return nrm, p, np.cross(nrm, p)
+
+    if case in ("plane_through_camera", "grazing"):
+        nrm, p, q = basis()
+        if case == "plane_through_camera":
+            h = 10.0 ** rng.uniform(-9, -3, (n, 1)) * rng.choice([-1, 1], (n, 1))
+            xy = rng.uniform(-3.0, 3.0, (n, 3, 2))
+        else:
+            h = 10.0 ** rng.uniform(-6, 0, (n, 1))
+            xy = rng.uniform(5.0, 50.0, (n, 1, 2)) + rng.uniform(-2.0, 2.0, (n, 3, 2))
+        tri = (o + h * nrm)[:, None, :] + xy[..., :1] * p[:, None] + xy[..., 1:] * q[:, None]
+    elif case == "slivers":
+        nrm, p, _ = basis()
+        v0 = o + rng.uniform(1.0, 5.0, (n, 1)) * nrm
+        v1 = v0 + rng.uniform(0.1, 2.0, (n, 1)) * p
+        eps = 10.0 ** rng.uniform(-8, -2, (n, 1))
+        v2 = v0 + rng.uniform(-1.0, 2.0, (n, 1)) * (v1 - v0) + eps * np.cross(nrm, p)
+        tri = np.stack([v0, v1, v2], 1)
+    else:
+        tri = o + rng.uniform(-2.0, 2.0, (n, 1, 3)) + rng.normal(scale=0.5, size=(n, 3, 3))
+    bary = rng.dirichlet([1.0, 1.0, 1.0], n)
+    aim = (bary[:, :, None] * tri).sum(1) + rng.normal(scale=1e-4, size=(n, 3))
+    d = (aim - o).astype(np.float32)
+    d = d / (np.linalg.norm(d, axis=1, keepdims=True) + np.float32(1e-6))
+    return tri.astype(np.float32), o.astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["plane_through_camera", "grazing", "slivers",
+                                  "random"])
+def test_skip_bound_holds_for_every_hit(case):
+    """Every (face, ray) pair, with the kernel's float32 arithmetic in its
+    operation order: every hit has t >= skip_bound (lb). The rays aimed at
+    their own faces give many hits, grazing ones and ones through faces
+    seen edge-on among them; the bound is not vacuous where the geometry
+    allows it."""
+    tri, o, d = (torch.as_tensor(x) for x in _adversarial_pairs(case))
+    v0, v1, v2 = tri[:, 0, :, None], tri[:, 1, :, None], tri[:, 2, :, None]
+    e1x, e1y, e1z = (v1 - v0).unbind(1)                       # (F, 1) each
+    e2x, e2y, e2z = (v2 - v0).unbind(1)
+    t0x, t0y, t0z = (o[:, None] - v0).unbind(1)
+    qvx = t0y * e1z - t0z * e1y
+    qvy = t0z * e1x - t0x * e1z
+    qvz = t0x * e1y - t0y * e1x
+    qe2 = qvx * e2x + qvy * e2y + qvz * e2z
+    lb = TP.skip_bound(e1x, e1y, e1z, e2x, e2y, e2z, qe2)
+    rdx, rdy, rdz = d[None, :, 0], d[None, :, 1], d[None, :, 2]  # (1, N)
+    assert bool((rdx * rdx + rdy * rdy + rdz * rdz <= TP.RAY_NORM2_MAX).all())
+    pvx = rdy * e2z - rdz * e2y
+    pvy = rdz * e2x - rdx * e2z
+    pvz = rdx * e2y - rdy * e2x
+    denom = pvx * e1x + pvy * e1y + pvz * e1z
+    ok = denom != 0.0
+    inv = 1.0 / torch.where(ok, denom, torch.ones_like(denom))
+    tt = qe2 * inv
+    u = (pvx * t0x + pvy * t0y + pvz * t0z) * inv
+    v = (qvx * rdx + qvy * rdy + qvz * rdz) * inv
+    hit = ok & (tt >= 0) & (u >= 0) & (v >= 0) & (u + v <= 1) & (tt < 3.0e38)
+    lbb = lb.expand_as(tt)
+    n = tri.shape[0]
+    assert int(hit.diagonal().sum()) > n // 10
+    assert bool((tt[hit] >= lbb[hit]).all()), float((lbb[hit] - tt[hit]).max())
+    if case == "random":
+        # the bound reaches most of t for some hit: it is not vacuous (for
+        # grazing rays it is the plane's distance, far below t)
+        assert float((lbb[hit] / tt[hit]).max()) > 0.5
+
+
+@pytest.mark.parametrize("inside", [False, True], ids=["orbit", "inside"])
+@pytest.mark.parametrize("num_layers", [1, 3, 8])
+def test_pruned_plain_peel_matches_full_scan_and_jax(num_layers, inside):
+    """The plain peel with the kernel's skip rule and insertion gate applied
+    gives exactly the layers and counts of the full scan and of the JAX
+    peel_layers (interpret mode): orbit views of tet_grid(2), and tet_grid(3)
+    seen from inside with faces edge-on to the camera."""
+    a, _ = _binned_scene(inside)
+    want_l, want_c = _jax_peel(num_layers, inside)
+    work = {}
+    full = TP.peel_layers_plain(*_port_args(a), num_layers)
+    pruned = TP.peel_layers_plain(*_port_args(a), num_layers, work=work, prune=True)
+    for got in (full, pruned):
+        np.testing.assert_array_equal(to_numpy(got[0]), want_l)
+        np.testing.assert_array_equal(to_numpy(got[1]), want_c)
+    assert want_c.max() >= min(num_layers, 3)
+    if num_layers < 8:
+        assert int(work["skipped"]) > 0 and int(work["gated"]) > 0
+
+
+def _numpy_work_counts(a, num_layers):
+    """An independent count of the pairs csrc/peel.cu skips and of the hits
+    its insertion gate keeps out: numpy float32 arithmetic in the kernel's
+    order, each pixel's slots kept by a Python merge of each 128-entry
+    block's hits."""
+    f32 = np.float32
+    faces, verts, exist = a["faces"], a["verts"], a["exist"]
+    starts, counts, entry = a["starts"], a["counts"], a["entry_bf"]
+    gx, gy = -(-W // 16), -(-H // 16)
+    out = dict(pairs=0, hits=0, skipped=0, gated=0)
+    inf = f32(3.0e38)
+
+    for tile in range(starts.shape[0]):
+        b, rem = divmod(tile, gx * gy)
+        ty, tx = divmod(rem, gx)
+        ys, xs = np.meshgrid(np.arange(16) + 16 * ty, np.arange(16) + 16 * tx,
+                             indexing="ij")
+        inside = (xs < W) & (ys < H)
+        rd = a["ray_d"][b][ys[inside], xs[inside]]                  # (N, 3)
+        bounded = (rd[:, 0] * rd[:, 0] + rd[:, 1] * rd[:, 1]
+                   + rd[:, 2] * rd[:, 2]) <= f32(1.0 + 2.0 ** -20)
+        slots = [[] for _ in range(rd.shape[0])]
+        s0, s1 = int(starts[tile]), int(starts[tile]) + int(counts[tile])
+        for base in range(s0 // 128 * 128, s1, 128):
+            rows = np.arange(max(base, s0), min(base + 128, s1))
+            f = entry[rows] % faces.shape[0]
+            f = f[exist[f] > 0]
+            if f.size == 0:
+                continue
+            v = verts[faces[f]]
+            e1, e2 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+            t0 = a["ray_o"][b] - v[:, 0]
+            qv = np.stack([t0[:, 1] * e1[:, 2] - t0[:, 2] * e1[:, 1],
+                           t0[:, 2] * e1[:, 0] - t0[:, 0] * e1[:, 2],
+                           t0[:, 0] * e1[:, 1] - t0[:, 1] * e1[:, 0]], 1)
+            qe2 = qv[:, 0] * e2[:, 0] + qv[:, 1] * e2[:, 1] + qv[:, 2] * e2[:, 2]
+            n1 = np.sqrt(e1[:, 0] * e1[:, 0] + e1[:, 1] * e1[:, 1] + e1[:, 2] * e1[:, 2])
+            n2 = np.sqrt(e2[:, 0] * e2[:, 0] + e2[:, 1] * e2[:, 1] + e2[:, 2] * e2[:, 2])
+            nv = np.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                           e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                           e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], 1)
+            nn = np.fmax(np.sqrt(nv[:, 0] * nv[:, 0] + nv[:, 1] * nv[:, 1]
+                                 + nv[:, 2] * nv[:, 2]), f32(2.0 ** -49))
+            lb = np.abs(qe2) / (nn + n1 * n2 * f32(2.0 ** -20)) * f32(1.0 - 2.0 ** -18)
+            lb = np.fmin(np.where(lb < f32(2.0 ** -100), f32(0), lb), inf)
+            sane = (n1 >= 2.0 ** -40) & (n1 <= 2.0 ** 40) & (n2 >= 2.0 ** -40) & (n2 <= 2.0 ** 40)
+            lb = np.where(sane, lb, f32(0))
+            for i, d in enumerate(rd):
+                pv = np.stack([d[1] * e2[:, 2] - d[2] * e2[:, 1],
+                               d[2] * e2[:, 0] - d[0] * e2[:, 2],
+                               d[0] * e2[:, 1] - d[1] * e2[:, 0]], 1)
+                den = pv[:, 0] * e1[:, 0] + pv[:, 1] * e1[:, 1] + pv[:, 2] * e1[:, 2]
+                un = pv[:, 0] * t0[:, 0] + pv[:, 1] * t0[:, 1] + pv[:, 2] * t0[:, 2]
+                vn = qv[:, 0] * d[0] + qv[:, 1] * d[1] + qv[:, 2] * d[2]
+                ok = den != 0
+                with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+                    inv = f32(1.0) / np.where(ok, den, f32(1.0))
+                tt, u, vv = qe2 * inv, un * inv, vn * inv
+                hit = ok & (tt >= 0) & (u >= 0) & (vv >= 0) & (u + vv <= 1) & (tt < inf)
+                thr = (sorted(slots[i])[num_layers - 1][0]
+                       if bounded[i] and len(slots[i]) >= num_layers
+                       else (inf if bounded[i] else np.inf))
+                skip = thr <= lb
+                out["pairs"] += f.size
+                out["hits"] += int(hit.sum())
+                out["skipped"] += int(skip.sum())
+                out["gated"] += int((hit & ~skip & (tt >= thr)).sum())
+                # the block's distinct t (the larger id on a tie), then the
+                # strict insertion into the slots, of which L are kept
+                best = {}
+                for t, fid in zip(tt[hit], f[hit]):
+                    best[t] = max(best.get(t, -1), int(fid))
+                for t in sorted(best)[:num_layers]:
+                    k = sum(1 for s in slots[i] if s[0] <= t)
+                    slots[i].insert(k, (t, best[t]))
+                    del slots[i][num_layers:]
+    return out
+
+
+@pytest.mark.parametrize("inside,num_layers", [(False, 1), (False, 3), (True, 2)],
+                         ids=["orbit-L1", "orbit-L3", "inside-L2"])
+def test_plain_peel_work_counts_match_numpy(inside, num_layers):
+    """The plain peel's ``work`` counts of skipped pairs and gated hits (and
+    of pairs and hits) equal an independent numpy count."""
+    a, _ = _binned_scene(inside)
+    work = {}
+    TP.peel_layers_plain(*_port_args(a), num_layers, work=work)
+    want = _numpy_work_counts(a, num_layers)
+    assert {k: int(work[k]) for k in want} == want
+    assert want["skipped"] > 0 and want["gated"] > 0
