@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. Build every CUDA kernel from ``dmesh2_renderer_tpu_torch/csrc`` (one nvcc
    per source, all at once) and print the card's name and power limit, the
    ptxas resource lines and each kernel's registers, shared memory, spill
-   and resident blocks per SM (the peel's for its 8-slot instance).
+   and resident blocks per SM (the peel's for its 8-slot instance, and for
+   its wide instance at 32 and 64 slots).
 2. Hold each kernel against its plain PyTorch version on the card, on the
    inputs the entry points give it (recorded as they call the kernel
    wrappers): icosphere(3), 4 views at 512x512 through one ragged 376x312
@@ -34,13 +35,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    equal on every tile) on an adversarial scene: tet_grid(12) seen from two
    eyes inside the grid (one on three grid planes, so faces there are
    edge-on and rays graze the planes beside them) and one outside eye on two
-   grid planes looking along them, through a ragged 333x201 frame, at 1, 8
-   and 16 layers, and with the rays scaled by 2 (longer than the skip bound
-   assumes: those pixels skip nothing) and by 0.5. The plain version's
-   counts of the pairs the kernel's skip rule drops and of the hits its
-   insertion gate keeps out are printed.
+   grid planes looking along them, through a ragged 333x201 frame, at 1, 8,
+   16, 17, 32 and 64 layers (the last three run the wide instance; 38,208
+   pixels there have more than 16 layers), and at 16 and 17 (the largest
+   register instance and the smallest wide one, where the skip rule still
+   drops pairs) with the rays scaled by 2 (longer than the skip bound
+   assumes: those pixels skip nothing) and by 0.5. The plain version's counts of the pairs the
+   kernel's skip rule drops and of the hits its insertion gate keeps out
+   are printed. First a tie scene of three 128-entry blocks at 3, 16, 17
+   and 32 layers: its layers must be [257, 130, 5] (a tie across blocks,
+   then a displaced slot carried past its tie).
 2c. Both compositors against their plain versions on a synthetic stress
-   scene (2 views x 3,000 small faces piled over a few tiles of a ragged
+   scene (2 views x 1,000 small faces piled over a few tiles of a ragged
    72x40 window; bbox edges on pixel boundaries; entries no pixel blends
    between ones that do; prefixes that are not a multiple of the chunk or
    of the backward's entry group) at tau 0, 0.5 and 1: the forward bit for
@@ -81,17 +87,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    depth, binning, peel), the peel kernel beside its two bounds (the full
    scan the JAX kernel does, and the work left after the kernel's skip
    rule; entries, pairs, hits, skipped pairs and gated hits counted by the
-   plain version over every tile, which is also held against the kernel
-   there) and beside its plain version, over every tile and on the sampled
-   tiles.
+   plain version over every tile in phase 5) and beside its plain version,
+   over every tile and on the sampled tiles.
+6b. ``parallel.generate_layers_sharded`` on a world of one, on the layered
+   headline at 32 layers: equal bit for bit to ``functional.generate_layers``
+   (the wide instance must launch), the kernel equal to its plain version
+   on the sampled tiles; its time beside the full-scan bound (the same as
+   at 8 layers: the bound does not depend on L), and the kernel's and the
+   plain version's times on the sampled tiles.
+6c. ``train.Trainer`` at the JAX package's BASELINE.json config 5
+   (icosphere(3), 64 orbit views at 256x256, Adam 1e-2, binning capacity
+   2^20) on a world of one: 2 warm-up steps, then timed steps (CUDA events;
+   ms per step and steps/s printed with the card); the loss must fall, the
+   three renderer kernels must launch, their outputs in the first step must
+   agree with their plain versions on the same inputs (as in phase 2), and
+   a checkpoint saved and restored
+   under a temporary directory must give the step, the parameters and
+   Adam's state back exactly.
+6d. ``suggest_config`` on the 1M-triangle 1080p headline scene; a render with
+   the suggested config must truncate nothing.
+6e. ``utils.profiling.profile_render`` on the headline scene: its six stages,
+   the end-to-end forward and step, and the unattributed remainder.
 7. The card's busy time in the 1080p forward and training step: the union
    of the device intervals torch.profiler records, beside the wall time of
    the profiled calls.
 
-The next-to-last lines are the ``{"kernels": [...]}`` JSON line and the
-card's ``nvidia-smi`` name and power limit; the last line is the
-``{"ok": true, "device": {...}}`` JSON line. A full report is also written
-to ``chiprun_out/chip_smoke.json``.
+The next-to-last lines are the ``{"kernels": [...]}`` JSON line (each
+kernel's ``launches`` summed over the main-path runs: the 1080p training
+step, the layered generate, the sharded peel and the Trainer's warm-up
+steps; ``peel`` is the register instances, 1 to 16 slots, timed at 8, and
+``peel_wide`` the wide instance, timed at 32, whose ``plain_ms`` is taken
+on the sampled tiles named in ``plain_tiles``, beside the kernel's
+``ms_plain_tiles`` there) and the card's ``nvidia-smi`` name and power
+limit; the last line is the ``{"ok": true, "device": {...}}`` JSON line.
+Each phase ends with its seconds on the host clock. A full report is also
+written to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -119,10 +149,13 @@ REPLACES = {
     "composite_fwd": "dmesh2_renderer_tpu/ops/pallas_fwd.py:254",
     "composite_bwd": "dmesh2_renderer_tpu/ops/pallas_bwd.py:62",
     "peel": "dmesh2_renderer_tpu/ops/peel.py:84",
+    "peel_wide": "dmesh2_renderer_tpu/ops/peel.py:84",
 }
-# The kernels of each main path: the training step, and the layered peel.
+# The kernels of each main path: the training step, the layered peel at 8
+# layers (the register instances) and the sharded peel at 32 (the wide one).
 TRAINING_KERNELS = ("pack_stream", "composite_fwd", "composite_bwd")
 LAYERED_KERNELS = ("peel",)
+SHARDED_KERNELS = ("peel_wide",)
 
 # composite_bwd vs its plain version, per gradient-record column, times
 # max(|column|, 1): the kernel's block sums and the plain version's
@@ -148,7 +181,7 @@ class Sizes:
     # Compositor stress scene: per view, stress_faces small faces piled over
     # three clusters of a few tiles in a ragged window.
     stress_views: int = 2
-    stress_faces: int = 3000
+    stress_faces: int = 1000
     stress_window: tuple = (72, 40)                 # pw, ph (ragged)
     stress_taus: tuple = (0.0, 0.5, 1.0)
     stress_seed: int = 4
@@ -158,7 +191,7 @@ class Sizes:
     patch: tuple = (832, 412, 256, 256)             # x0, y0, pw, ph
     capacity: int = 32 * (1 << 17)
     reps: int = 10
-    plain_reps: int = 3
+    plain_reps: int = 1
     adam_steps: int = 5
     # Layered path. Check scenes: the JAX package's layered benchmark
     # config (benchmarks/run.py config 3, whose default max_tiles_per_face
@@ -186,9 +219,22 @@ class Sizes:
     # planes lie at multiples of 2.4 / adv_res from -1.2, three views.
     adv_res: int = 12
     adv_frame: tuple = (333, 201)                   # width, height (ragged)
-    adv_layers: tuple = (1, 8, 16)
+    adv_layers: tuple = (1, 8, 16, 17, 32, 64)
     adv_capacity: int = 1 << 21
     adv_ray_scales: tuple = (2.0, 0.5)
+    adv_ray_layers: tuple = (16, 17)
+    # Tiles the plain peel takes at once on the card: its time is mostly
+    # the launches of its L x L merge, one set per group.
+    plain_peel_group: int = 1024
+    # Phase 6b: the sharded peel on the layered headline, above 16 layers.
+    sharded_layers: int = 32
+    # Phase 6c: the Trainer at the JAX package's BASELINE.json config 5.
+    trainer_subdiv: int = 3
+    trainer_views: int = 64
+    trainer_res: int = 256
+    trainer_capacity: int = 1 << 20
+    trainer_steps: int = 8
+    profile_iters: int = 5
 
 
 def nvidia_smi_line() -> str:
@@ -218,6 +264,18 @@ def time_ms(fn, reps: int, warmup: int = 1) -> tuple[float, list[float]]:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), times
+
+
+def timed_once(fn):
+    """Milliseconds of one call of ``fn()`` (CUDA events), and its result."""
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
 
 
 def merged_span_us(spans) -> float:
@@ -280,7 +338,7 @@ def scene_args(s):
 
 @contextlib.contextmanager
 def captured_kernel_calls(module=None, names=("pack_stream", "composite_forward",
-                                              "composite_backward")):
+                                              "composite_backward"), copy=False):
     """Record the arguments and the result of each kernel wrapper as the
     main path calls it (by default ``pack_stream``, ``composite_forward``
     and ``composite_backward``, looked up in ``ops/rasterize.py``; the
@@ -289,6 +347,8 @@ def captured_kernel_calls(module=None, names=("pack_stream", "composite_forward"
     the kernels.
 
     Yields a dict: wrapper name -> (positional args, result) of its last call.
+    With ``copy`` the tensors are copies, kept from later in-place updates
+    (an optimizer's step on the parameters).
     """
     if module is None:
         from dmesh2_renderer_tpu_torch.ops import rasterize as module
@@ -297,7 +357,8 @@ def captured_kernel_calls(module=None, names=("pack_stream", "composite_forward"
     originals = {name: getattr(module, name) for name in names}
 
     def detached(xs):
-        return tuple(x.detach() if isinstance(x, torch.Tensor) else x for x in xs)
+        return tuple((x.detach().clone() if copy else x.detach())
+                     if isinstance(x, torch.Tensor) else x for x in xs)
 
     def recording(name, fn):
         def call(*args):
@@ -695,15 +756,12 @@ def phase_main_path(dev, sz: Sizes, report, kernels):
                                 s["faces"], p["verts_color"], p["faces_opacity"],
                                 p["faces_intense"], s["background"], 1.0)
 
-    sync()
-    for k in kernels:
-        k.launches = 0
+    reset_launches(kernels)
     with captured_kernel_calls() as calls:
         color, depth = forward(params)
         (color.sum() + depth.sum()).backward()
-    sync()
+    launches = read_launches(kernels)
     color, depth = color.detach(), depth.detach()
-    launches = {k.name: k.launches for k in kernels}
     aux = [int(x) for x in renderer.last_aux]
     print(f"  launches on the main path: {launches}")
     print(f"  aux: num_rendered={aux[0]} num_truncated={aux[1]} "
@@ -748,10 +806,24 @@ def phase_main_path(dev, sz: Sizes, report, kernels):
     return renderer, s, forward, calls, work, bwd_work
 
 
+def reset_launches(kernels):
+    """Set every kernel's launch count to 0 (after the card is idle)."""
+    sync()
+    for k in kernels:
+        k.launches = 0
+
+
+def read_launches(kernels):
+    """Every kernel's launch count, once the card is idle."""
+    sync()
+    return {k.name: k.launches for k in kernels}
+
+
 def record_launches(report, launches, path_kernels, label):
-    """Keep each path kernel's launch count; raise if one did not launch."""
+    """Add each path kernel's launch count to its total over the main-path
+    runs; raise if one did not launch on this path."""
     for name in path_kernels:
-        report[name]["launches"] = launches[name]
+        report[name]["launches"] += launches[name]
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
 
@@ -1047,6 +1119,8 @@ def ray_t(verts, faces, ray_o, rd, ids):
 def compare_peel(kernel_out, plain_out, label, report, pixels=None):
     """Layers and counts of the peel kernel must equal its plain version's
     (on the ``pixels`` mask when given); raises otherwise."""
+    from dmesh2_renderer_tpu_torch.ops.peel import LAYER_INSTANCES
+
     (kl, kc), (pl_, pc) = kernel_out, plain_out
     if pixels is not None:
         kl, kc, pl_, pc = kl[pixels], kc[pixels], pl_[pixels], pc[pixels]
@@ -1056,10 +1130,11 @@ def compare_peel(kernel_out, plain_out, label, report, pixels=None):
           f"layers, {bad_c} in counts; max count {int(kc.max()) if kc.numel() else 0}")
     if bad_l or bad_c:
         raise AssertionError(f"{label}: peel kernel differs from its plain version")
-    report["peel"]["max_abs_err"] = max(report["peel"]["max_abs_err"], 0.0)
+    name = "peel_wide" if kl.shape[-1] > LAYER_INSTANCES[-1] else "peel"
+    report[name]["max_abs_err"] = max(report[name]["max_abs_err"], 0.0)
 
 
-def peel_generate(lr, idx, scene, num_layers, label, report,
+def peel_generate(lr, idx, scene, num_layers, label, report, sz: Sizes,
                   may_truncate=False, work=None):
     """``LayeredRenderer.generate`` on the card, recording the peel
     wrapper's call, with the kernel's output held against its plain
@@ -1075,8 +1150,8 @@ def peel_generate(lr, idx, scene, num_layers, label, report,
     if truncated and not may_truncate:
         raise AssertionError(f"{label}: binning truncated {truncated} entries")
     args, out = calls["peel_layers"]
-    compare_peel(out, peel_layers_plain(*args, work=work), f"{label} L={num_layers}",
-                 report)
+    compare_peel(out, peel_layers_plain(*args, work=work, group=sz.plain_peel_group),
+                 f"{label} L={num_layers}", report)
     return layers, counts, calls["peel_layers"]
 
 
@@ -1093,7 +1168,8 @@ def phase_layered_checks(dev, sz: Sizes, report):
     lr = LayeredRenderer(mv, proj, sz.peel_hw, sz.peel_hw,
                          config=RasterConfig(binning_capacity=sz.peel_capacity))
     peel_generate(lr, [0], (verts, faces, tets, face_tets, tet_faces, exist), 8,
-                  f"tet_grid({sz.peel_res}) {sz.peel_hw}^2", report, may_truncate=True)
+                  f"tet_grid({sz.peel_res}) {sz.peel_hw}^2", report, sz,
+                  may_truncate=True)
     print(f"  (binning of that config: num_rendered={int(lr.last_aux[0])}, "
           f"num_truncated={int(lr.last_aux[1])})")
 
@@ -1109,7 +1185,7 @@ def phase_layered_checks(dev, sz: Sizes, report):
     ray_o = lr.ray_o[:, 0, 0].cpu().numpy()
     for num_layers in sz.peel_small_layers:
         layers, counts, _ = peel_generate(lr, [0, 1], scene, num_layers,
-                                          f"tet_grid(2) {w}x{h}", report)
+                                          f"tet_grid(2) {w}x{h}", report, sz)
         layers, counts = layers.cpu().numpy(), counts.cpu().numpy()
         for view in range(2):
             ref_l, ref_c, _ = brute_force_layers(verts, faces, exist, ray_o[view],
@@ -1120,6 +1196,39 @@ def phase_layered_checks(dev, sz: Sizes, report):
                   f"{int(bad.sum())} of {bad.size} pixels differ")
             if not bad.mean() < 0.01 or counts.max() == 0:
                 raise AssertionError("LayeredRenderer differs from the brute force")
+
+
+def phase_peel_ties(dev, report):
+    """The peel's tie rules on one 16x16 tile of 260 entries in id order
+    (128-entry blocks 0-127, 128-255, 256-259), centre ray along -z: faces
+    5 and 130 share a vertex triple (t = 2.8), a tie across blocks, so the
+    later goes after the earlier; face 257 (t = 2.3, block 2) displaces 5,
+    which is carried past 130, its tie. Layers [257, 130, 5] (a stable merge
+    would give [257, 5, 130]), by the kernel at 3, 16, 17 and 32 slots."""
+    from dmesh2_renderer_tpu_torch.ops.peel import peel_layers, peel_layers_plain
+
+    f = 260
+    tri = np.array([[-1.0, -1.0, 0.2], [1.0, -1.0, 0.2], [0.0, 1.0, 0.2]], np.float32)
+    verts = np.tile(tri, (f, 1))
+    verts[3 * 257:3 * 258] = tri + [0, 0, 0.5]
+    faces = np.arange(3 * f, dtype=np.int32).reshape(f, 3)
+    faces[130] = faces[5]
+    exist = np.zeros(f, np.int32)
+    exist[[5, 130, 257]] = 1
+    entry_bf = np.full(384, f, np.int32)
+    entry_bf[:f] = np.arange(f)
+    ray_d = np.zeros((1, 16, 16, 3), np.float32)
+    ray_d[..., 2] = -1.0
+    args = [torch.as_tensor(x, device=dev) for x in (
+        entry_bf, faces, verts, exist, np.array([0], np.int32),
+        np.array([f], np.int32), np.array([[0.0, 0.0, 3.0]], np.float32), ray_d)]
+    for num_layers in (3, 16, 17, 32):
+        out = peel_layers(*args, 16, 16, num_layers)
+        got = out[0][0, 8, 8].tolist()
+        compare_peel(out, peel_layers_plain(*args, 16, 16, num_layers),
+                     f"tie scene L={num_layers}", report)
+        if got[:4] != [257, 130, 5, -1][:min(4, num_layers)]:
+            raise AssertionError(f"tie scene L={num_layers}: centre layers {got[:4]}")
 
 
 def phase_peel_adversarial(dev, sz: Sizes, report):
@@ -1151,20 +1260,29 @@ def phase_peel_adversarial(dev, sz: Sizes, report):
         num_giant_faces=4096))
     scene = (verts, faces, tets, face_tets, tet_faces, exist)
     idx = list(range(len(eyes)))
+    phase_peel_ties(dev, report)
+    calls = {}
     for num_layers in sz.adv_layers:
         work = {}
-        _, counts, call = peel_generate(lr, idx, scene, num_layers, "adversarial",
-                                        report, may_truncate=True, work=work)
+        _, counts, calls[num_layers] = peel_generate(
+            lr, idx, scene, num_layers, "adversarial", report, sz, may_truncate=True,
+            work=work)
         print(f"    binning num_rendered={int(lr.last_aux[0])} num_truncated="
-              f"{int(lr.last_aux[1])}; pixels with a layer {int((counts > 0).sum())}; "
-              f"plain version's work {({k: int(v) for k, v in work.items()})}")
+              f"{int(lr.last_aux[1])}; pixels with a layer {int((counts > 0).sum())}, "
+              f"with more than 16 {int((counts > 16).sum())}; plain version's work "
+              f"{({k: int(v) for k, v in work.items()})}")
         if int(counts.max()) < min(num_layers, 2):
             raise AssertionError("adversarial scene gives too few layers")
-    args = list(call[0])
-    for scale in sz.adv_ray_scales:
-        args[7] = call[0][7] * scale
-        compare_peel(peel_layers(*args), peel_layers_plain(*args),
-                     f"adversarial L={num_layers}, rays x {scale}", report)
+    # Rays off unit length, in the largest register instance and the wide one.
+    for num_layers in sz.adv_ray_layers:
+        if num_layers not in calls:
+            continue
+        args = list(calls[num_layers][0])
+        for scale in sz.adv_ray_scales:
+            args[7] = calls[num_layers][0][7] * scale
+            compare_peel(peel_layers(*args),
+                         peel_layers_plain(*args, group=sz.plain_peel_group),
+                         f"adversarial L={num_layers}, rays x {scale}", report)
 
 
 def layered_scene(sz: Sizes):
@@ -1197,13 +1315,11 @@ def phase_layered_main(dev, sz: Sizes, report, kernels):
     lr = LayeredRenderer(mv, proj, w, h, config=config)
     idx = list(range(n_views))
     scene_t = tuple(torch.as_tensor(x, device=dev) for x in scene)
-    sync()
-    for k in kernels:
-        k.launches = 0
+    reset_launches(kernels)
+    work = {}
     layers, counts, peel_call = peel_generate(lr, idx, scene_t, n_layers,
-                                              f"main {w}x{h}", report)
-    sync()
-    launches = {k.name: k.launches for k in kernels}
+                                              f"main {w}x{h}", report, sz, work=work)
+    launches = read_launches(kernels)
     nr, nt = (int(x) for x in lr.last_aux)
     print(f"  launches on the layered path: {launches}")
     print(f"  aux: num_rendered={nr} num_truncated={nt}")
@@ -1270,21 +1386,23 @@ def phase_layered_main(dev, sz: Sizes, report, kernels):
     sub = peel_layers(*args, tiles=tiles)
     compare_peel(sub, plain, f"main {w}x{h}, kernel on the sampled tiles only",
                  report)
-    return lr, scene_t, idx, peel_call, tiles
+    return lr, scene_t, idx, peel_call, tiles, mask, work
 
 
-def peel_bound(args, work, n_slots):
+def peel_bound(args, work):
     """Least time for the peel of these inputs (``work`` from the plain
     version): entry_bf of every walked entry, the face tables, the tile
     ranges and rays read once, layers and counts written once; against the
-    per-entry, per-pair and per-hit float operations of csrc/peel.cu. Two
-    bounds: the full scan (every pair, the JAX kernel's work) and the work
-    left after the kernel's skip rule (the skip bound per entry, one
-    comparison per skipped pair).
+    per-entry, per-pair and per-hit float operations of csrc/peel.cu (one
+    per-hit charge for every L). Two bounds: the full scan (every pair, the
+    JAX kernel's work; entries, pairs and hits do not depend on L, so
+    neither does its operation count) and the work left after the kernel's
+    skip rule at the L ``work`` was counted at (the skip bound per entry,
+    one comparison per skipped pair).
 
     Returns (full-scan ms, its limit, after-skip ms, its limit, counts)."""
     from dmesh2_renderer_tpu_torch.ops.peel import (
-        OPS_PER_ENTRY, OPS_PER_ENTRY_BOUND, OPS_PER_HIT_SLOT, OPS_PER_PAIR,
+        OPS_PER_ENTRY, OPS_PER_ENTRY_BOUND, OPS_PER_HIT, OPS_PER_PAIR,
         OPS_PER_SKIPPED_PAIR)
 
     _, faces, verts, exist, starts, counts, ray_o, ray_d, _, _, n_layers = args
@@ -1293,7 +1411,7 @@ def peel_bound(args, work, n_slots):
     nbytes = (int(counts.sum()) * 4 + faces.numel() * 4 + verts.numel() * 4
               + exist.numel() * 4 + (starts.numel() + counts.numel()) * 4
               + ray_o.numel() * 4 + ray_d.numel() * 4 + n_pix * (n_layers + 1) * 4)
-    hit_ops = w["hits"] * OPS_PER_HIT_SLOT * n_slots
+    hit_ops = w["hits"] * OPS_PER_HIT
     ops = w["entries"] * OPS_PER_ENTRY + w["pairs"] * OPS_PER_PAIR + hit_ops
     ops_left = (w["entries"] * (OPS_PER_ENTRY + OPS_PER_ENTRY_BOUND)
                 + (w["pairs"] - w["skipped"]) * OPS_PER_PAIR
@@ -1308,11 +1426,12 @@ def peel_bound(args, work, n_slots):
             dict(w, bytes=nbytes, ops=ops, ops_after_skip=ops_left))
 
 
-def phase_layered_timing(dev, sz: Sizes, report, lr, scene, idx, peel_call, tiles):
+def phase_layered_timing(dev, sz: Sizes, report, lr, scene, idx, peel_call, tiles,
+                         work):
     from dmesh2_renderer_tpu_torch import geometry as G
     from dmesh2_renderer_tpu_torch.ops.binning import bin_faces
     from dmesh2_renderer_tpu_torch.ops.peel import (
-        pack_peel_stream, peel_instance, peel_layers, peel_layers_plain)
+        pack_peel_stream, peel_layers, peel_layers_plain)
     from dmesh2_renderer_tpu_torch.ops.reference import face_depth01
 
     w, h, n_layers = sz.width, sz.height, sz.layered_layers
@@ -1329,12 +1448,9 @@ def phase_layered_timing(dev, sz: Sizes, report, lr, scene, idx, peel_call, tile
     peel_ms, _ = time_ms(lambda: peel_layers(*args), sz.reps)
     sub_ms, _ = time_ms(lambda: peel_layers(*args, tiles=tiles), sz.reps)
     sub_plain_ms, _ = time_ms(lambda: peel_layers_plain(*args, tiles=tiles), 1)
-    plain_ms, _ = time_ms(lambda: peel_layers_plain(*args), 1, warmup=0)
-    work = {}
-    plain_full = peel_layers_plain(*args, work=work)
-    compare_peel(peel_call[1], plain_full, f"main {w}x{h}, every tile", report)
-    bound, bound_by, left, left_by, peel_work = peel_bound(args, work,
-                                                           peel_instance(n_layers))
+    plain_ms, _ = time_ms(lambda: peel_layers_plain(*args, group=sz.plain_peel_group),
+                          1, warmup=0)
+    bound, bound_by, left, left_by, peel_work = peel_bound(args, work)
     report["peel"].update(ms=peel_ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by=bound_by, library_ms=None)
     pairs, hits = peel_work["pairs"], peel_work["hits"]
@@ -1379,6 +1495,206 @@ def phase_layered_timing(dev, sz: Sizes, report, lr, scene, idx, peel_call, tile
                 peel_sampled_plain_ms=sub_plain_ms)
 
 
+def phase_sharded_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, mask,
+                       peel_work):
+    """generate_layers_sharded on a world of one at L = sz.sharded_layers on
+    the layered headline, bit for bit equal to functional.generate_layers;
+    the kernel (its wide instance) against its plain version on the sampled
+    tiles (``tiles``, their pixels ``mask``), its time beside the full-scan
+    bound, and the kernel's and the plain version's times on those tiles."""
+    from dmesh2_renderer_tpu_torch import functional
+    from dmesh2_renderer_tpu_torch.ops.peel import (
+        peel_layers, peel_layers_plain, wide_occupancy)
+    from dmesh2_renderer_tpu_torch.parallel import generate_layers_sharded, make_view_mesh
+
+    n_layers, w, h = sz.sharded_layers, sz.width, sz.height
+    verts, faces, exist = scene[0], scene[1], scene[5]
+    mv, proj, config = lr.mv, lr.proj, lr.config
+    print(f"phase 6b: generate_layers_sharded, world of one, layered headline "
+          f"({mv.shape[0]} views at {w}x{h}), L={n_layers}")
+    mesh = make_view_mesh()
+    reset_launches(kernels)
+    with captured_kernel_calls(functional, ("peel_layers",)) as calls:
+        layers, counts, (nr, nt) = generate_layers_sharded(
+            mesh, verts, faces, exist, mv, proj, w, h, n_layers, config)
+    launches = read_launches(kernels)
+    print(f"  launches on the sharded peel path: {launches}")
+    record_launches(report, launches, SHARDED_KERNELS, "sharded peel")
+    ref = functional.generate_layers(verts, faces, exist, mv, proj, w, h, n_layers,
+                                     config)
+    same = (torch.equal(layers, ref[0]) and torch.equal(counts, ref[1])
+            and (int(nr), int(nt)) == (int(ref[2][0]), int(ref[2][1])))
+    print(f"  equal to functional.generate_layers bit for bit: {same}; "
+          f"num_rendered={int(nr)} num_truncated={int(nt)}; counts.max() "
+          f"{int(counts.max())}; pixels with more than 16 layers "
+          f"{int((counts > 16).sum())}")
+    if not same or int(nt) != 0:
+        raise AssertionError("generate_layers_sharded differs from generate_layers")
+    args = calls["peel_layers"][0]
+    n_tiles = args[4].shape[0]
+    plain_ms, plain = timed_once(lambda: peel_layers_plain(*args, tiles=tiles))
+    compare_peel(calls["peel_layers"][1], plain,
+                 f"L={n_layers} {w}x{h}, {tiles.numel()} sampled tiles", report,
+                 pixels=mask)
+    ms, runs = time_ms(lambda: peel_layers(*args), sz.reps)
+    sub_ms, _ = time_ms(lambda: peel_layers(*args, tiles=tiles), sz.reps)
+    bound, bound_by, _, _, _ = peel_bound(args, peel_work)
+    report["peel_wide"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                               bound_by=bound_by, library_ms=None,
+                               plain_tiles=f"{tiles.numel()} of {n_tiles}",
+                               ms_plain_tiles=sub_ms)
+    occ = wide_occupancy(n_layers)
+    print(f"  peel_wide at L={n_layers}: {ms:.3f} ms (runs {[round(t, 3) for t in runs]}), "
+          f"full-scan bound {bound:.3f} ms ({bound_by}); on the "
+          f"{tiles.numel()} sampled tiles: kernel {sub_ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"wide instance {occ}")
+    return dict(peel_sharded_layers=n_layers, peel_wide_ms=ms, peel_wide_runs_ms=runs,
+                peel_wide_bound_ms=bound, peel_wide_resources=occ,
+                peel_wide_sampled_ms=sub_ms, peel_wide_sampled_plain_ms=plain_ms)
+
+
+def config5_scene(sz: Sizes):
+    """The JAX package's BASELINE.json config 5 (benchmarks/run.py:167-211):
+    icosphere(3), sz.trainer_views orbit cameras at sz.trainer_res^2,
+    colours |verts| mod 1, opacity 0.5, unit intensities, black targets and
+    background."""
+    from dmesh2_renderer_tpu_torch.parallel import SceneParams
+    from dmesh2_renderer_tpu_torch.utils.meshes import icosphere, orbit_cameras
+
+    verts, faces = icosphere(sz.trainer_subdiv)
+    mv, proj = orbit_cameras(sz.trainer_views)
+    f, b, r = faces.shape[0], sz.trainer_views, sz.trainer_res
+    params = SceneParams(verts, np.abs(verts) % 1.0, np.full((f,), 0.5, np.float32))
+    batch = (np.ones((b, f), np.float32), mv, proj,
+             np.zeros((b, r, r, 3), np.float32), np.zeros(3, np.float32))
+    return params, faces, batch
+
+
+def phase_trainer(dev, sz: Sizes, report, kernels, card):
+    """The Trainer at config 5 on a world of one: the loss falls, the three
+    renderer kernels launch and, in the first step, agree with their plain
+    versions on the inputs the Trainer gave them, a checkpoint round-trips
+    exactly, and the steady-state time per step."""
+    import functools
+    import tempfile
+
+    from dmesh2_renderer_tpu_torch import RasterConfig
+    from dmesh2_renderer_tpu_torch.parallel import make_view_mesh
+    from dmesh2_renderer_tpu_torch.train import Trainer, save_checkpoint
+
+    params, faces, batch = config5_scene(sz)
+    r = sz.trainer_res
+    print(f"phase 6c: Trainer, config 5: icosphere({sz.trainer_subdiv}) "
+          f"({faces.shape[0]} faces), {sz.trainer_views} views at {r}x{r}, Adam 1e-2, "
+          f"binning_capacity {sz.trainer_capacity}, world of one")
+    mesh = make_view_mesh()
+    opt = functools.partial(torch.optim.Adam, lr=1e-2)
+    config = RasterConfig(binning_capacity=sz.trainer_capacity)
+    tr = Trainer(mesh, opt, faces, r, r, 1.0, config)
+    state = tr.init_state(params)
+    batch = tuple(torch.as_tensor(x, device=dev) for x in batch)
+    losses = []
+    reset_launches(kernels)
+    with captured_kernel_calls(copy=True) as calls:  # warm-up; the first step
+        state, loss = tr.step(state, *batch)
+    losses.append(float(loss))
+    state, loss = tr.step(state, *batch)
+    losses.append(float(loss))
+    launches = read_launches(kernels)
+    print(f"  launches in the two warm-up steps: {launches}; stats "
+          f"{[int(x) for x in tr.last_stats]}")
+    record_launches(report, launches, TRAINING_KERNELS, "Trainer")
+    # The kernels' outputs of the first step vs their plain versions.
+    label = f"Trainer {sz.trainer_views}x{r}x{r}"
+    check_kernels(calls, label, report)
+    check_backward(calls, label, report)
+    del calls
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sync()
+    t0 = time.perf_counter()
+    start.record()
+    step_losses = []
+    for _ in range(sz.trainer_steps):
+        state, loss = tr.step(state, *batch)
+        step_losses.append(loss)
+    end.record()
+    end.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / sz.trainer_steps
+    ms = start.elapsed_time(end) / sz.trainer_steps
+    losses += [float(x) for x in step_losses]
+    print("  loss per step: " + ", ".join(f"{x:.6g}" for x in losses))
+    print(f"  {ms:.3f} ms per step ({1e3 / ms:.2f} steps/s; host clock "
+          f"{wall_ms:.3f} ms) over {sz.trainer_steps} steps after 2 warm-up steps, "
+          f"on {card}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the Trainer's loss did not fall: {losses}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        save_checkpoint(path, state)
+        tr2 = Trainer(mesh, opt, faces, r, r, 1.0, config, checkpoint_path=path)
+        back = tr2.init_state(params)
+    sd1, sd2 = state.opt_state.state_dict(), back.opt_state.state_dict()
+    exact = (int(back.step) == int(state.step)
+             and all(torch.equal(a, b) for a, b in zip(back.params, state.params))
+             and sd1["param_groups"] == sd2["param_groups"]
+             and all(torch.equal(v, sd2["state"][k][n])
+                     for k in sd1["state"] for n, v in sd1["state"][k].items()))
+    print(f"  checkpoint round trip (step {int(back.step)}, parameters and Adam "
+          f"state): exact {exact}")
+    if not exact:
+        raise AssertionError("checkpoint round trip is not exact")
+    return dict(trainer_ms_per_step=ms, trainer_steps_per_s=1e3 / ms,
+                trainer_wall_ms_per_step=wall_ms, trainer_losses=losses)
+
+
+def phase_suggest_config(dev, sz: Sizes):
+    """suggest_config on the 1M-triangle 1080p headline scene; a render with
+    the suggested config must truncate nothing."""
+    import dataclasses
+
+    from dmesh2_renderer_tpu_torch import render, suggest_config
+
+    s, mv, proj, _ = headline_scene(dev, sz)
+    print(f"phase 6d: suggest_config on the headline scene ({sz.n_faces} faces, "
+          f"{sz.width}x{sz.height})")
+    t0 = time.perf_counter()
+    cfg = suggest_config(s["verts"], s["faces"], mv, proj, sz.width, sz.height)
+    probe_s = time.perf_counter() - t0
+    with torch.no_grad():
+        color, _, aux = render(*scene_args(s)[:5], mv, proj, s["background"],
+                               sz.width, sz.height, 1.0, cfg)
+    sync()
+    fields = {k: v for k, v in dataclasses.asdict(cfg).items()
+              if k in ("binning_capacity", "max_tiles_per_face", "num_giant_faces",
+                       "giant_tiles", "vertex_sort_mode")}
+    print(f"  suggested {fields} (probe {probe_s:.3f} s on the host clock); render: "
+          f"num_rendered={int(aux.num_rendered)} num_truncated={int(aux.num_truncated)}")
+    if int(aux.num_truncated) != 0 or not torch.isfinite(color).all():
+        raise AssertionError("the suggested config truncates the headline scene")
+    return dict(suggested_config=fields, suggested_num_rendered=int(aux.num_rendered))
+
+
+def phase_profile_render(dev, sz: Sizes, card):
+    """profile_render on the headline scene with its config."""
+    from dmesh2_renderer_tpu_torch.utils.profiling import profile_render
+
+    s, mv, proj, config = headline_scene(dev, sz)
+    print(f"phase 6e: profile_render on the headline scene ({sz.width}x{sz.height}, "
+          f"{sz.profile_iters} calls per stage after one warm-up, CUDA events)")
+    rep = profile_render(*scene_args(s)[:5], mv, proj, s["background"], sz.width,
+                         sz.height, 1.0, config, iters=sz.profile_iters)
+    print("  stages_ms: " + ", ".join(f"{k} {v:.3f}" for k, v in rep["stages_ms"].items()))
+    print(f"  e2e_fwd_ms {rep['e2e_fwd_ms']:.3f}, e2e_ms {rep['e2e_ms']:.3f}, "
+          f"unattributed_ms {rep['unattributed_ms']:.3f}; num_rendered "
+          f"{rep['num_rendered']} num_truncated {rep['num_truncated']} num_binned "
+          f"{rep['num_binned']} num_contributing {rep['num_contributing']}; on {card}")
+    if rep["num_truncated"] != 0 or len(rep["stages_ms"]) != 6:
+        raise AssertionError(f"profile_render: {rep}")
+    return dict(profile_render=rep)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -1401,6 +1717,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {k.name}: {line.strip()}")
     resources = {k.name: k.occupancy() for k in _kernels.KERNELS}
+    from dmesh2_renderer_tpu_torch.ops.peel import wide_occupancy
+    for n in (32, 64):
+        resources[f"peel_wide_{n}"] = wide_occupancy(n)
     for name, occ in resources.items():
         print(f"  {name}: {occ}")
 
@@ -1408,24 +1727,44 @@ def main() -> int:
     report = {k.name: dict(name=k.name, route="cuda",
                            source=os.path.relpath(k.source, root),
                            replaces=REPLACES[k.name], launches=0, max_abs_err=0.0)
-              for k in _kernels.KERNELS}
-    phase_kernel_checks(dev, sz, report)
-    phase_layered_checks(dev, sz, report)
-    phase_peel_adversarial(dev, sz, report)
-    phase_stress(dev, sz, report)
-    renderer, s, forward, calls, work, bwd_work = phase_main_path(
-        dev, sz, report, _kernels.KERNELS)
-    losses = phase_training(dev, sz, renderer, s, forward)
-    timings = phase_timing(dev, sz, report, renderer, s, forward, calls, work,
-                           bwd_work)
+              for k in _kernels.COUNTED}
+    counted = _kernels.COUNTED
+    phase_s = {}
+
+    def run(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[label] = time.perf_counter() - t
+        print(f"  [{label}: {phase_s[label]:.1f} s on the host clock]")
+        return out
+
+    run("2", phase_kernel_checks, dev, sz, report)
+    run("2b", phase_layered_checks, dev, sz, report)
+    run("2d", phase_peel_adversarial, dev, sz, report)
+    run("2c", phase_stress, dev, sz, report)
+    renderer, s, forward, calls, work, bwd_work = run(
+        "3", phase_main_path, dev, sz, report, counted)
+    losses = run("3b", phase_training, dev, sz, renderer, s, forward)
+    timings = run("4", phase_timing, dev, sz, report, renderer, s, forward, calls,
+                  work, bwd_work)
     timings.update(adam_losses=losses)
     # The layered path after the renderer's timings, which then run in the
     # state they ran in before the layered path existed.
-    layered = phase_layered_main(dev, sz, report, _kernels.KERNELS)
-    timings.update(phase_layered_timing(dev, sz, report, *layered))
-    timings.update(phase_device_busy(sz, s, forward))
+    lr, scene_t, idx, peel_call, tiles, mask, peel_work = run(
+        "5", phase_layered_main, dev, sz, report, counted)
+    timings.update(run("6", phase_layered_timing, dev, sz, report, lr, scene_t, idx,
+                       peel_call, tiles, peel_work))
+    del peel_call
+    timings.update(run("6b", phase_sharded_peel, dev, sz, report, counted, lr, scene_t,
+                       tiles, mask, timings["peel_work"]))
+    del lr, scene_t, tiles, mask
+    timings.update(run("6c", phase_trainer, dev, sz, report, counted, card))
+    timings.update(run("6d", phase_suggest_config, dev, sz))
+    timings.update(run("6e", phase_profile_render, dev, sz, card))
+    timings.update(run("7", phase_device_busy, sz, s, forward))
+    timings.update(phase_s=phase_s)
 
-    kernels_line = {"kernels": [report[k.name] for k in _kernels.KERNELS]}
+    kernels_line = {"kernels": [report[k.name] for k in counted]}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(card=card, torch=torch.__version__, build_s=build_s,

@@ -7,7 +7,9 @@ geometry and the gradient reduction are plain PyTorch; the record pack, the
 forward and backward tile compositors and the depth peel are hand-written
 CUDA kernels (``csrc/``), built with nvcc at first use. Entry points run on
 the card unless the caller passes ``device="cpu"``, which runs each
-kernel's plain PyTorch version instead.
+kernel's plain PyTorch version instead. ``suggest_config`` sizes the static
+binning capacities from a scene; ``parallel`` and ``train`` hold the
+data-parallel training step and the ``Trainer`` over ``torch.distributed``.
 """
 
 from dmesh2_renderer_tpu_torch.functional import (
@@ -15,7 +17,9 @@ from dmesh2_renderer_tpu_torch.functional import (
 )
 from dmesh2_renderer_tpu_torch.models.layered import LayeredRenderer
 from dmesh2_renderer_tpu_torch.models.renderer import Renderer
+from dmesh2_renderer_tpu_torch.utils.autotune import suggest_config
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
 
 __all__ = ["Renderer", "LayeredRenderer", "RasterConfig", "render",
-           "render_partial", "render_banded", "generate_layers"]
+           "render_partial", "render_banded", "generate_layers",
+           "suggest_config"]

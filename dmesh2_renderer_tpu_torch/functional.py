@@ -19,7 +19,7 @@ from dmesh2_renderer_tpu_torch.ops.rasterize import RasterAux, make_rasterizer
 from dmesh2_renderer_tpu_torch.ops.reference import face_depth01
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
 from dmesh2_renderer_tpu_torch.utils.validate import (
-    check_face_indices, resolve_device, valence_cache,
+    check_face_indices, resolve_device, valence_cache, valence_cap,
 )
 
 
@@ -56,7 +56,7 @@ def render_partial(
             f"(got patch_origin={patch_origin!r}, patch_shape={patch_shape!r})"
         )
     dev = resolve_device(device)
-    valence_cache.check(faces, config.max_vertex_valence, len(verts))
+    valence_cache.check(faces, valence_cap(config), len(verts))
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)

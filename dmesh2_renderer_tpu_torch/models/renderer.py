@@ -31,6 +31,7 @@ from dmesh2_renderer_tpu_torch.utils.validate import (
     check_render_args,
     resolve_device,
     valence_cache,
+    valence_cap,
 )
 
 
@@ -82,8 +83,9 @@ class Renderer:
             background, batch_mvp_idx.shape[0], aa_temperature,
         )
         # Valence and vertex-index check on the caller's own object, before
-        # conversion, so the identity fast path holds across calls.
-        valence_cache.check(faces, self.config.max_vertex_valence, len(verts))
+        # conversion, so the identity fast path holds across calls. Static
+        # mode checks the indices only, as the JAX class skips the guard.
+        valence_cache.check(faces, valence_cap(self.config), len(verts))
 
         def f32(x):
             return torch.as_tensor(x, dtype=torch.float32, device=dev)

@@ -9,7 +9,8 @@ tests import every module without a CUDA toolchain.
 
 Each kernel object carries ``launches``, a count of its successful launches:
 its wrapper calls :meth:`Kernel.launched` right after the C launch function
-returns, and nowhere else.
+returns, and nowhere else. The peel's wide instance, a second kernel in
+``peel.cu``, is counted apart (``PEEL_WIDE``).
 """
 
 from __future__ import annotations
@@ -105,24 +106,29 @@ class Kernel:
             self._lib = lib
         return self._lib
 
-    def launched(self, err: int) -> None:
-        """Check the launch function's ``cudaGetLastError()`` and count it."""
+    def check(self, err: int, name: str | None = None) -> None:
+        """Raise unless the launch function's ``cudaGetLastError()`` is 0."""
         if err != 0:
             msg = self._lib.cuda_error_string(err).decode()
-            raise RuntimeError(f"{self.name} kernel launch failed: {msg} ({err})")
+            raise RuntimeError(f"{name or self.name} kernel launch failed: {msg} ({err})")
+
+    def launched(self, err: int) -> None:
+        """Check the launch function's ``cudaGetLastError()`` and count it."""
+        self.check(err)
         self.launches += 1
 
-    def occupancy(self) -> dict:
+    def occupancy(self, function: str | None = None, *args: int) -> dict:
         """The kernel's resources on the current card, from its
-        ``<name>_occupancy`` C function: registers per thread, static and
-        dynamic shared memory and local (spill) bytes, and resident
-        256-thread blocks per SM (the peel's for its 8-slot instance)."""
+        ``<name>_occupancy`` C function (or ``function``, called with the
+        int ``args`` first): registers per thread, static and dynamic shared
+        memory and local (spill) bytes, and resident 256-thread blocks per
+        SM (the peel's for its 8-slot instance)."""
         lib = self.load()
-        fn = getattr(lib, f"{self.name}_occupancy")
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn = getattr(lib, function or f"{self.name}_occupancy")
+        fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         out = (ctypes.c_int * 5)()
-        err = fn(out)
+        err = fn(*args, out)
         if err != 0:
             msg = lib.cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name} occupancy query failed: {msg} ({err})")
@@ -176,7 +182,29 @@ PEEL = Kernel("peel", "peel.cu", [
     P,                    # stream
 ], extra_flags=("-fmad=false",))
 
+
+class Instance:
+    """A second kernel of another :class:`Kernel`'s source, launched through
+    the same C function but counted on its own."""
+
+    def __init__(self, name: str, kernel: Kernel):
+        self.name = name
+        self.kernel = kernel
+        self.source = kernel.source
+        self.launches = 0
+
+    def launched(self, err: int) -> None:
+        self.kernel.check(err, self.name)
+        self.launches += 1
+
+
+# peel.cu's wide instance (17 .. MAX_LAYERS slots in shared memory), apart
+# from its register instances (1 .. 16 slots), which PEEL counts.
+PEEL_WIDE = Instance("peel_wide", PEEL)
+
 KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD, PEEL)
+# Everything with a launch count: the built kernels and the peel's wide one.
+COUNTED = KERNELS + (PEEL_WIDE,)
 
 
 def build_all() -> None:

@@ -16,7 +16,8 @@ contract, kept here exactly:
     values; a tie inside a block collapses to the larger face id. They are
     merged into the L carried slots by strict insertion
     (``carry_t < slot_t``), so a tie with a slot from an earlier block is
-    kept as a second layer;
+    kept as a second layer, after it; a slot the insertion displaces is
+    carried past the slots equal to it;
   * layers are face ids, -1 padded, and counts the filled slots.
 
 ``peel_layers`` runs ``csrc/peel.cu`` on CUDA tensors and the plain version
@@ -53,17 +54,25 @@ _INF = 3.0e38
 # prefix of the top-L' (every entry a block adds past its L-th is preceded
 # by L smaller ones), and the count is min(count', L).
 LAYER_INSTANCES = (1, 2, 4, 8, 16)
+# Above 16 the kernel's wide instance runs with exactly L slots, kept with
+# the block's list in shared memory (2 KiB per slot for the 128 pixels of a
+# half tile); this many fit beside its face staging in the 227 KiB a block
+# may opt in to on sm_90.
+MAX_LAYERS = 96
 
 # Float operations counted from csrc/peel.cu. Per entry (one thread per
 # face of a block): edges, origin offset, q = t0 x e1 and q . e2 (23). Per
 # (existing-face entry, in-frame pixel) pair: p = d x e2, the determinant,
-# its test and reciprocal, t, u, v and the hit tests (35). Per hit, per
-# slot of the block-local list: the tie test, the order test and two
-# selects (4). The merge of each block's list into the slots is not counted.
-# These are the JAX kernel's work, a full scan: the full-scan bound.
+# its test and reciprocal, t, u, v and the hit tests (35). Per hit, one
+# charge for every L (32): the 8-slot block list's tie test, order test
+# and two selects per slot; the wide instance's two binary searches (5 + 5
+# compares at L = 32), tie test and swap walk (~L/2 compares) come to as
+# many. The merge of each block's list into the slots is not counted.
+# These are the JAX kernel's work, a full scan: the full-scan bound, which
+# does not depend on L.
 OPS_PER_ENTRY = 23
 OPS_PER_PAIR = 35
-OPS_PER_HIT_SLOT = 4
+OPS_PER_HIT = 32
 # The work left after the skip rule (the after-skip bound): per entry also
 # the skip bound (two edge norms with their guards 16, the normal and its
 # norm 16, the quotient, its scale, flush and clamp 8), per skipped pair
@@ -203,7 +212,12 @@ def _peel_group(records, starts, counts, ro, rdx, rdy, rdz, in_frame,
         fidb = fid.expand_as(tt)
 
         # The block's L smallest distinct t (the larger id on a tie), each
-        # merged into the carried slots by a branch-free insertion.
+        # merged into the carried slots by a branch-free insertion: the
+        # carried entry swaps with the first slot it is strictly below, and
+        # the slot it displaces is carried on the same way. A tie is not
+        # below, so the inserted entry goes after the slots equal to it, and
+        # so does each displaced one: a displaced slot moves to the end of
+        # the run of slots equal to it.
         thresh = neg1
         for _ in range(num_layers):
             cand = torch.where(tt > thresh, tt, _INF)
@@ -274,15 +288,25 @@ def peel_layers_plain(entry_bf, faces, verts, faces_existence, tile_starts,
 
 
 def peel_instance(num_layers: int) -> int:
-    """The kernel's slot count for ``num_layers``; raises when none covers
-    it."""
+    """The kernel's slot count for ``num_layers``: the smallest register
+    instance that covers it, else ``num_layers`` itself (the wide instance).
+    Raises above ``MAX_LAYERS``."""
     for n in LAYER_INSTANCES:
         if n >= num_layers:
             return n
+    if num_layers <= MAX_LAYERS:
+        return num_layers
     raise ValueError(
         f"num_layers={num_layers} exceeds the peel kernel's largest slot "
-        f"count {LAYER_INSTANCES[-1]} (csrc/peel.cu instantiates "
-        f"{LAYER_INSTANCES})")
+        f"count MAX_LAYERS={MAX_LAYERS} (csrc/peel.cu keeps the slots of a "
+        "tile's 256 pixels in shared memory); the CPU path takes any count")
+
+
+def wide_occupancy(num_layers: int) -> dict:
+    """The wide instance's resources at ``num_layers`` slots (17 ..
+    ``MAX_LAYERS``): registers, static and dynamic shared memory, local
+    (spill) bytes and resident 128-thread blocks (half tiles) per SM."""
+    return _kernels.PEEL.occupancy("peel_wide_occupancy", num_layers)
 
 
 def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
@@ -300,7 +324,7 @@ def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
         layers and 0 counts.
     Returns (layers (B, H, W, L) int32 face ids, -1 padded, counts
     (B, H, W) int32). CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/peel.cu`` (num_layers up to ``LAYER_INSTANCES[-1]``).
+    launch ``csrc/peel.cu`` (num_layers up to ``MAX_LAYERS``).
     """
     num_layers = int(num_layers)
     if num_layers < 1:
@@ -356,5 +380,5 @@ def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
             num_layers, P(layers.data_ptr()), P(counts.data_ptr()),
             _kernels.current_stream(dev),
         )
-    _kernels.PEEL.launched(err)
+    (_kernels.PEEL_WIDE if inst > LAYER_INSTANCES[-1] else _kernels.PEEL).launched(err)
     return layers, counts

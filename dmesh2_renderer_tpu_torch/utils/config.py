@@ -59,7 +59,8 @@ class RasterConfig:
       request for the plain reference compositor (``ops/reference.py``),
       with no binning at all, differentiated by autograd.
     * ``max_vertex_valence``: the valence guard of the eager entry points
-      (``utils/validate.py``), which always runs in the port.
+      (``utils/validate.py``). As in the JAX package it is skipped with
+      ``vertex_sort_mode="static"``; the vertex-index check runs always.
     * ``grad_compact_capacity``: ``Renderer.forward`` warns when the
       forward's contributing-entry count exceeds it, because the JAX
       package's backward would then drop entries. The port's backward

@@ -24,7 +24,7 @@ def _host_array(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def check_vertex_valence(faces, max_vertex_valence: int,
+def check_vertex_valence(faces, max_vertex_valence: int | None,
                          num_verts: int | None = None) -> bool:
     """Fail loudly when a vertex's valence exceeds the gradient-scan cap.
 
@@ -33,7 +33,9 @@ def check_vertex_valence(faces, max_vertex_valence: int,
     with more incident faces would get a truncated gradient sum. The port
     keeps the same contract at its entry points. With ``num_verts`` it also
     checks that every index lies in [0, num_verts): the CUDA kernels read
-    vertex rows through these indices unchecked. Raises ValueError on
+    vertex rows through these indices unchecked. ``max_vertex_valence=None``
+    checks the indices only (``vertex_sort_mode="static"``: the JAX
+    package's valence table is exact for any valence). Raises ValueError on
     violation; returns True.
     """
     f = _host_array(faces)
@@ -41,6 +43,8 @@ def check_vertex_valence(faces, max_vertex_valence: int,
         return True
     if num_verts is not None:
         check_face_indices(torch.as_tensor(f), num_verts)
+    if max_vertex_valence is None:
+        return True
     val = int(np.bincount(f.ravel()).max())
     if val > max_vertex_valence:
         raise ValueError(
@@ -66,7 +70,7 @@ class _ValenceCache:
         self._by_id = {}       # (id, cap, P) -> weakref to the checked object
         self._digests = set()  # (shape, cap, P, sha1) that passed
 
-    def check(self, faces, max_vertex_valence: int,
+    def check(self, faces, max_vertex_valence: int | None,
               num_verts: int | None = None) -> bool:
         idkey = (id(faces), max_vertex_valence, num_verts)
         ref = self._by_id.get(idkey)
@@ -88,6 +92,16 @@ class _ValenceCache:
 # Shared across the eager entry points (models.Renderer, functional.render):
 # all of them validate the same contract against the same topology objects.
 valence_cache = _ValenceCache()
+
+
+def valence_cap(config) -> int | None:
+    """The valence the entry points hold ``faces`` to: the config's cap,
+    or None (indices only) with ``vertex_sort_mode="static"``, whose JAX
+    valence-table reduction is exact for any valence. The port's own
+    ``index_add_`` reduction has no cap."""
+    if config.vertex_sort_mode == "static":
+        return None
+    return config.max_vertex_valence
 
 
 def check_render_args(verts, faces, verts_color, faces_opacity, faces_intense,

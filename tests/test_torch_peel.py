@@ -104,13 +104,14 @@ def _inside_cameras():
     return mv, proj
 
 
-@functools.lru_cache(maxsize=2)
-def _binned_scene(inside=False):
+@functools.lru_cache(maxsize=3)
+def _binned_scene(inside=False, res=None):
     """tet_grid(2), a third of the faces deleted, two orbit views (or
-    tet_grid(3) seen from inside, ``INSIDE_EYES``), binned by min depth as
-    the peel pipeline does, on the JAX side. Returns numpy arrays and the
-    JAX stream."""
-    verts, _, faces, _, _ = JM.tet_grid(3 if inside else 2)
+    tet_grid(3) seen from inside, ``INSIDE_EYES``; or tet_grid(res) seen
+    from inside, whose grid planes pass through the eyes for even res),
+    binned by min depth as the peel pipeline does, on the JAX side. Returns
+    numpy arrays and the JAX stream."""
+    verts, _, faces, _, _ = JM.tet_grid(res or (3 if inside else 2))
     exist = np.ones(faces.shape[0], np.int32)
     exist[::3] = 0
     mv, proj = _inside_cameras() if inside else JM.orbit_cameras(B)
@@ -120,7 +121,8 @@ def _binned_scene(inside=False):
     tris = JG.face_aa_triangles(vimg, jnp.asarray(faces))
     _, min_depth, _, alive = face_depth01(vndc, jnp.asarray(faces))
     binning = jax_bin_faces(tris.verts, min_depth, alive,
-                            jnp.zeros((B, 2), jnp.int32), W, H, 1 << 13, 64,
+                            jnp.zeros((B, 2), jnp.int32), W, H,
+                            1 << 13 if res is None else 1 << 16, 64,
                             num_giant_faces=64)
     stream = JP.pack_peel_stream(binning.entry_bf, jnp.asarray(verts),
                                  jnp.asarray(faces), jnp.asarray(exist))
@@ -150,8 +152,8 @@ def test_pack_peel_stream_matches_jax():
 
 
 @functools.lru_cache(maxsize=8)
-def _jax_peel(num_layers, inside=False):
-    a, stream = _binned_scene(inside)
+def _jax_peel(num_layers, inside=False, res=None):
+    a, stream = _binned_scene(inside, res)
     layers, counts = JP.peel_layers(
         stream, jnp.asarray(a["starts"]), jnp.asarray(a["counts"]),
         jnp.asarray(a["ray_o"]), jnp.asarray(a["ray_d"]), W, H, num_layers,
@@ -238,16 +240,125 @@ def test_tie_rule_matches_jax(case):
     np.testing.assert_array_equal(to_numpy(got[1]), np.asarray(want[1]))
 
 
+def _displaced_tie_scene():
+    """One 16x16 tile of 260 entries in id order (blocks 0-127, 128-255,
+    256-259): faces 5 and 130 share one vertex triple (t = 2.8 on the centre
+    ray), face 257 lies nearer (t = 2.3). Numpy arrays in peel_layers'
+    argument order, then the expected layers of the centre pixel."""
+    f = 260
+    tri = np.array([[-1.0, -1.0, 0.2], [1.0, -1.0, 0.2], [0.0, 1.0, 0.2]], np.float32)
+    verts = np.tile(tri, (f, 1))
+    verts[3 * 257:3 * 258] = tri + [0, 0, 0.5]
+    faces = np.arange(3 * f, dtype=np.int32).reshape(f, 3)
+    faces[130] = faces[5]
+    exist = np.zeros(f, np.int32)
+    exist[[5, 130, 257]] = 1
+    entry_bf = np.full(384, f, np.int32)
+    entry_bf[:f] = np.arange(f)
+    ray_o = np.array([[0.0, 0.0, 3.0]], np.float32)
+    ray_d = np.zeros((1, 16, 16, 3), np.float32)
+    ray_d[..., 2] = -1.0
+    return ((entry_bf, faces, verts, exist, np.array([0], np.int32),
+             np.array([f], np.int32), ray_o, ray_d), [257, 130, 5])
+
+
+@pytest.mark.parametrize("num_layers", [3, 17, 32])
+def test_displaced_slot_passes_its_ties_as_in_jax(num_layers):
+    """Blocks 0 and 1 leave the slots [5, 130] (a tie across blocks: the
+    later after the earlier). Block 2 inserts the nearer 257: the slot it
+    displaces, 5, is carried past 130, which it ties, so the layers are
+    [257, 130, 5], as the JAX kernel gives (a stable merge would give
+    [257, 5, 130]); in the register (L = 3) and the wide (L > 16) range."""
+    args, expect = _displaced_tie_scene()
+    entry_bf, faces, verts, exist, starts, counts, ray_o, ray_d = args
+    want = JP.peel_layers(
+        JP.pack_peel_stream(jnp.asarray(entry_bf), jnp.asarray(verts),
+                            jnp.asarray(faces), jnp.asarray(exist)),
+        jnp.asarray(starts), jnp.asarray(counts), jnp.asarray(ray_o),
+        jnp.asarray(ray_d), 16, 16, 3, interpret=True)
+    np.testing.assert_array_equal(np.asarray(want[0])[0, 8, 8], expect)
+    got = TP.peel_layers(*(torch.as_tensor(x) for x in args), 16, 16, num_layers)
+    assert to_numpy(got[0])[0, 8, 8].tolist() == expect + [-1] * (num_layers - 3)
+    np.testing.assert_array_equal(to_numpy(got[0])[..., :3], np.asarray(want[0]))
+    np.testing.assert_array_equal(to_numpy(got[1]), np.asarray(want[1]))
+
+
 def test_num_layers_outside_the_kernel_instances_raises():
-    """The kernel is instantiated for 1, 2, 4, 8 and 16 slots; a call asks
-    for the smallest that covers it, and above 16 it raises."""
+    """The kernel's register instances have 1, 2, 4, 8 and 16 slots; a call
+    asks for the smallest that covers it. Above 16 the wide instance runs
+    with exactly L slots, up to MAX_LAYERS; above that it raises, naming the
+    limit (the CPU path takes any count)."""
     assert [TP.peel_instance(n) for n in (1, 2, 3, 5, 8, 9, 16)] == \
         [1, 2, 4, 8, 8, 16, 16]
-    with pytest.raises(ValueError, match="largest slot count"):
-        TP.peel_instance(17)
+    assert [TP.peel_instance(n) for n in (17, 32, 64, TP.MAX_LAYERS)] == \
+        [17, 32, 64, TP.MAX_LAYERS]
+    with pytest.raises(ValueError, match=f"largest slot count MAX_LAYERS={TP.MAX_LAYERS}"):
+        TP.peel_instance(TP.MAX_LAYERS + 1)
     a, _ = _binned_scene()
     with pytest.raises(ValueError, match="num_layers"):
         TP.peel_layers(*_port_args(a), 0)
+
+
+def test_wide_instance_counts_its_launches_apart():
+    """peel.cu's wide instance has a launch count of its own, beside the
+    register instances' (both launched through one C function); a failed
+    launch raises under its own name."""
+    from dmesh2_renderer_tpu_torch.ops import _kernels
+
+    assert _kernels.PEEL_WIDE.source == _kernels.PEEL.source
+    assert _kernels.COUNTED == _kernels.KERNELS + (_kernels.PEEL_WIDE,)
+    before = (_kernels.PEEL.launches, _kernels.PEEL_WIDE.launches)
+    _kernels.PEEL_WIDE.launched(0)
+    assert (_kernels.PEEL.launches, _kernels.PEEL_WIDE.launches) == \
+        (before[0], before[1] + 1)
+
+    class Lib:
+        @staticmethod
+        def cuda_error_string(err):
+            return b"invalid argument"
+
+    saved = _kernels.PEEL._lib
+    _kernels.PEEL._lib = Lib()
+    try:
+        with pytest.raises(RuntimeError, match="peel_wide kernel launch failed"):
+            _kernels.PEEL_WIDE.launched(1)
+    finally:
+        _kernels.PEEL._lib = saved
+        _kernels.PEEL_WIDE.launches = before[1]
+    assert _kernels.PEEL_WIDE.launches == before[1]
+
+
+# tet_grid(6) from inside: up to 20 hits per ray, so L > 16 is filled.
+DENSE = dict(inside=True, res=6)
+
+
+@pytest.mark.parametrize("num_layers", [17, 32])
+def test_plain_peel_beyond_16_layers_matches_jax(num_layers):
+    """The plain peel above 16 layers, on a scene whose rays hit more than
+    16 faces. The JAX peel_layers in interpret mode unrolls its slot merge
+    L x L: XLA compiles it in seconds at L = 16 but did not finish within
+    20 minutes at L = 32 on a CPU. So it is run at L = 16 and the first 16
+    layers are held against it (the carried top-L
+    is a prefix of the top-L' for L < L', the rule both packages and the
+    kernel keep); every layer is held against an independent numpy merge of
+    the JAX rule (:func:`_numpy_peel`), which itself equals the JAX kernel
+    at L = 16. The pruned plain version gives the same."""
+    a, _ = _binned_scene(**DENSE)
+    want_l16, want_c16 = _jax_peel(16, **DENSE)
+    _, np_l16, np_c16 = _numpy_peel(a, 16)
+    np.testing.assert_array_equal(np_l16, want_l16)
+    np.testing.assert_array_equal(np_c16, want_c16)
+    _, np_l, np_c = _numpy_peel(a, num_layers)
+    for prune in (False, True):
+        layers, counts = TP.peel_layers_plain(*_port_args(a), num_layers,
+                                              prune=prune)
+        assert tuple(layers.shape) == (B, H, W, num_layers)
+        np.testing.assert_array_equal(to_numpy(layers), np_l)
+        np.testing.assert_array_equal(to_numpy(counts), np_c)
+        np.testing.assert_array_equal(to_numpy(layers)[..., :16], want_l16)
+        np.testing.assert_array_equal(np.minimum(to_numpy(counts), 16), want_c16)
+    # 230 pixels hit more than 16 faces, up to 20
+    assert int((np_c > 16).sum()) > 200 and np_c.max() == min(num_layers, 20)
 
 
 # ---------------------------------------------------------------------------
@@ -367,12 +478,26 @@ def _numpy_work_counts(a, num_layers):
     its insertion gate keeps out: numpy float32 arithmetic in the kernel's
     order, each pixel's slots kept by a Python merge of each 128-entry
     block's hits."""
+    return _numpy_peel(a, num_layers)[0]
+
+
+def _numpy_peel(a, num_layers):
+    """The peel in numpy and Python, independent of both packages' code:
+    float32 arithmetic in the kernel's order, each pixel's slots kept by a
+    Python merge of each 128-entry block's hits (its distinct t, the larger
+    id on a tie, each carried into the slots by the JAX kernel's swap rule,
+    under which a displaced slot passes the slots equal to it). Returns (work
+    counts as in :func:`_numpy_work_counts`, layers (B, H, W, L), counts
+    (B, H, W))."""
     f32 = np.float32
     faces, verts, exist = a["faces"], a["verts"], a["exist"]
     starts, counts, entry = a["starts"], a["counts"], a["entry_bf"]
     gx, gy = -(-W // 16), -(-H // 16)
     out = dict(pairs=0, hits=0, skipped=0, gated=0)
     inf = f32(3.0e38)
+    n_views = a["ray_d"].shape[0]
+    layers = np.full((n_views, H, W, num_layers), -1, np.int32)
+    n_hit = np.zeros((n_views, H, W), np.int32)
 
     for tile in range(starts.shape[0]):
         b, rem = divmod(tile, gx * gy)
@@ -383,7 +508,7 @@ def _numpy_work_counts(a, num_layers):
         rd = a["ray_d"][b][ys[inside], xs[inside]]                  # (N, 3)
         bounded = (rd[:, 0] * rd[:, 0] + rd[:, 1] * rd[:, 1]
                    + rd[:, 2] * rd[:, 2]) <= f32(1.0 + 2.0 ** -20)
-        slots = [[] for _ in range(rd.shape[0])]
+        slots = [[(inf, -1)] * num_layers for _ in range(rd.shape[0])]
         s0, s1 = int(starts[tile]), int(starts[tile]) + int(counts[tile])
         for base in range(s0 // 128 * 128, s1, 128):
             rows = np.arange(max(base, s0), min(base + 128, s1))
@@ -421,24 +546,28 @@ def _numpy_work_counts(a, num_layers):
                     inv = f32(1.0) / np.where(ok, den, f32(1.0))
                 tt, u, vv = qe2 * inv, un * inv, vn * inv
                 hit = ok & (tt >= 0) & (u >= 0) & (vv >= 0) & (u + vv <= 1) & (tt < inf)
-                thr = (sorted(slots[i])[num_layers - 1][0]
-                       if bounded[i] and len(slots[i]) >= num_layers
-                       else (inf if bounded[i] else np.inf))
+                thr = slots[i][-1][0] if bounded[i] else np.inf
                 skip = thr <= lb
                 out["pairs"] += f.size
                 out["hits"] += int(hit.sum())
                 out["skipped"] += int(skip.sum())
                 out["gated"] += int((hit & ~skip & (tt >= thr)).sum())
-                # the block's distinct t (the larger id on a tie), then the
-                # strict insertion into the slots, of which L are kept
+                # the block's distinct t (the larger id on a tie), each
+                # carried into the L slots: it swaps with the first slot it
+                # is strictly below, which is carried on the same way
                 best = {}
                 for t, fid in zip(tt[hit], f[hit]):
                     best[t] = max(best.get(t, -1), int(fid))
                 for t in sorted(best)[:num_layers]:
-                    k = sum(1 for s in slots[i] if s[0] <= t)
-                    slots[i].insert(k, (t, best[t]))
-                    del slots[i][num_layers:]
-    return out
+                    carry = (t, best[t])
+                    for k in range(num_layers):
+                        if carry[0] < slots[i][k][0]:
+                            slots[i][k], carry = carry, slots[i][k]
+        for (y, x), s in zip(zip(ys[inside], xs[inside]), slots):
+            ids = [fid for t, fid in s if t < inf]
+            layers[b, y, x, :len(ids)] = ids
+            n_hit[b, y, x] = len(ids)
+    return out, layers, n_hit
 
 
 @pytest.mark.parametrize("inside,num_layers", [(False, 1), (False, 3), (True, 2)],

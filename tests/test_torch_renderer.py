@@ -157,6 +157,51 @@ def test_renderer_overflow_warns():
     assert int(r.last_aux.num_truncated) > 0
 
 
+def test_static_mode_skips_the_valence_guard_as_jax_does():
+    """icosphere(1) has vertices of valence 6. With max_vertex_valence=4 and
+    vertex_sort_mode="static" both packages render (their valence-table and
+    index_add_ reductions have no cap), through functional.render and
+    Renderer.forward, and the images agree; in "sort" mode both raise. The
+    vertex-index check still runs in static mode."""
+    s = scene_arrays(b=2, seed=6)
+    assert np.bincount(s["faces"].ravel()).max() == 6
+    jcfg = JaxConfig(binning_capacity=2048, interpret=True, max_vertex_valence=4,
+                     vertex_sort_mode="static")
+    cfg = config_from_jax(dataclasses.asdict(jcfg))
+    args = [s[k] for k in RENDER_KEYS[:5]] + [s["mv"], s["proj"], s["background"],
+                                             32, 32, 1.0]
+    want = jax_render(*[jnp.asarray(x) for x in args[:8]], *args[8:], jcfg)
+    got = render(*args, cfg, device="cpu")
+    np.testing.assert_allclose(to_numpy(got[0]), np.asarray(want[0]), **OWN_RAYS_TOL)
+    np.testing.assert_allclose(to_numpy(got[1]), np.asarray(want[1]), **OWN_RAYS_TOL)
+    assert [int(x) for x in got[2]] == [int(x) for x in want[2]]
+
+    jr = JaxRenderer(s["mv"], s["proj"], 32, 32, config=jcfg)
+    want_c, want_d = jr.forward([0, 1], [[0, 0], [0, 0]], 32, 32,
+                                *[jnp.asarray(s[k]) for k in RENDER_KEYS])
+    r = Renderer(s["mv"], s["proj"], 32, 32, device="cpu", config=cfg)
+    r.ray_o, r.ray_d = torch.as_tensor(np.array(jr.ray_o)), torch.as_tensor(np.array(jr.ray_d))
+    color, depth = r.forward([0, 1], [[0, 0], [0, 0]], 32, 32,
+                             *[s[k] for k in RENDER_KEYS])
+    np.testing.assert_allclose(to_numpy(color), np.asarray(want_c), **TOL)
+    np.testing.assert_allclose(to_numpy(depth), np.asarray(want_d), **TOL)
+    np.testing.assert_allclose(to_numpy(color), to_numpy(got[0]), **OWN_RAYS_TOL)
+
+    sort_cfg = dataclasses.replace(cfg, vertex_sort_mode="sort")
+    with pytest.raises(ValueError, match="max_vertex_valence=4"):
+        render(*args, sort_cfg, device="cpu")
+    with pytest.raises(ValueError, match="max_vertex_valence=4"):
+        jax_render(*[jnp.asarray(x) for x in args[:8]], *args[8:],
+                   dataclasses.replace(jcfg, vertex_sort_mode="sort"))
+    bad_faces = s["faces"].copy()
+    bad_faces[0, 0] = len(s["verts"])
+    with pytest.raises(ValueError, match="outside"):
+        render(args[0], bad_faces, *args[2:], cfg, device="cpu")
+    with pytest.raises(ValueError, match="outside"):
+        r.forward([0, 1], [[0, 0], [0, 0]], 32, 32, s["verts"], bad_faces,
+                  *[s[k] for k in RENDER_KEYS[2:]])
+
+
 def test_renderer_rejects_bad_indices():
     """Face vertex ids, camera ids and patch windows are checked before any
     kernel reads through them."""
