@@ -10,8 +10,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. Build every CUDA kernel from ``dmesh2_renderer_tpu_torch/csrc`` (one nvcc
    per source, all at once) and print the card's name and power limit, the
    ptxas resource lines and each kernel's registers, shared memory, spill
-   and resident blocks per SM (the peel's for its 8-slot instance, and for
-   its wide instance at 32 and 64 slots).
+   and resident blocks per SM (the peel's for its 8-slot instance, for its
+   wide instance at 32 and 64 slots and for its deep instance).
 2. Hold each kernel against its plain PyTorch version on the card, on the
    inputs the entry points give it (recorded as they call the kernel
    wrappers): icosphere(3), 4 views at 512x512 through one ragged 376x312
@@ -44,7 +44,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernel's skip rule drops and of the hits its insertion gate keeps out
    are printed. First a tie scene of three 128-entry blocks at 3, 16, 17
    and 32 layers: its layers must be [257, 130, 5] (a tie across blocks,
-   then a displaced slot carried past its tie).
+   then a displaced slot carried past its tie). Then, above 96 layers (the
+   deep instance), a stack of 150 sheets (utils/meshes.sheet_stack, three
+   listed twice: exact t ties, some across 128-entry blocks) seen head-on
+   through 640x480 at 97 and 128 layers: every tile equal, counts = L on
+   every pixel, and 2,400 half-tile units, more than the deep instance's
+   persistent blocks, so each block loops over units.
 2c. Both compositors against their plain versions on a synthetic stress
    scene (2 views x 1,000 small faces piled over a few tiles of a ragged
    72x40 window; bbox edges on pixel boundaries; entries no pixel blends
@@ -94,7 +99,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (the wide instance must launch), the kernel equal to its plain version
    on the sampled tiles; its time beside the full-scan bound (the same as
    at 8 layers: the bound does not depend on L), and the kernel's and the
-   plain version's times on the sampled tiles.
+   plain version's times on the sampled tiles. Then the same at 128 layers
+   (the deep instance must launch): its first 32 layers and counts equal
+   the 32-layer peel's on every pixel, all 128 equal the plain version's on
+   the sampled tiles; its time beside the bound.
 6c. ``train.Trainer`` at the JAX package's BASELINE.json config 5
    (icosphere(3), 64 orbit views at 256x256, Adam 1e-2, binning capacity
    2^20) on a world of one: 2 warm-up steps, then timed steps (CUDA events;
@@ -108,17 +116,55 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the suggested config must truncate nothing.
 6e. ``utils.profiling.profile_render`` on the headline scene: its six stages,
    the end-to-end forward and step, and the unattributed remainder.
-7. The card's busy time in the 1080p forward and training step: the union
-   of the device intervals torch.profiler records, beside the wall time of
-   the profiled calls.
+6f. Face slabs: the headline as 4 depth slabs, the per-rank body of
+   ``parallel/face_parallel.py`` for each in one process (a card hosts one
+   rank), folded front to back. The three kernels of the last slab's
+   forward and backward in one slab training step against their plain
+   versions (as in phase 2). The fold against ``functional.render`` with
+   the faces renumbered in depth order and no giant tier or exact tile
+   cull, where the two composite every pixel's faces in one order: within
+   2e-5 where one render does not stop early, and within 2e-5 + its final T
+   where it does (each slab stops on its own T). With the headline as it
+   is, the fold departs from the render where faces' quantized depths tie,
+   as the JAX package's slabs do: the pixels beyond that bound are counted
+   and held to ``Sizes.slab_tie_share`` of the frame and
+   ``tie_departure_max``. ``render_faces_sharded`` on a world of one
+   (faces in depth order) within 2e-5 of ``render``; the 4-slab forward and
+   training step beside one render's; on config 5's scene (4 views) the
+   slabs' gradients, summed as the all-reduce would, against autograd of
+   the unsharded loss within 5e-5 x scale + 1e-7.
+6g. Pixel bands: the headline as 4 bands of 270 rows, the per-rank body of
+   ``parallel/patch_parallel.py`` for each in one process, stitched. The
+   two forward kernels of band 1 (origin y0 = 270, off the tile grid)
+   against their plain versions. The stitch against ``functional.render``
+   with the faces renumbered in depth order and no giant tier or exact
+   tile cull: within 1e-6 (bit-identity printed); with the headline as it
+   is, the pixels departing by more than 1e-6 held to
+   ``Sizes.band_tie_share`` and ``tie_departure_max``.
+   ``render_pixels_sharded`` on a world of one equal to ``render``; the
+   4-band forward beside one render's.
+6h. ``train.Trainer`` on a (1, 1) ("dp", "sp") mesh at config 5 (the grid
+   step): the three kernels launch, and in the first step agree with their
+   plain versions, the loss falls, ms per step; a (2, 2) grid's four (view
+   half, band) bodies in one process, averaged, against
+   ``make_sharded_train_step`` on a world of one (loss within 1e-5
+   relative, gradients within 1e-6 x max(|g|, 1)), and the kernels of its
+   last body (32 views, rows 128-255) against their plain versions.
+7. The card's busy time in the 1080p forward and training step and in the
+   4-slab and 4-band forwards: the union of the device intervals
+   torch.profiler records, beside the wall time of the profiled calls.
 
 The next-to-last lines are the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` summed over the main-path runs: the 1080p training
-step, the layered generate, the sharded peel and the Trainer's warm-up
-steps; ``peel`` is the register instances, 1 to 16 slots, timed at 8, and
-``peel_wide`` the wide instance, timed at 32, whose ``plain_ms`` is taken
-on the sampled tiles named in ``plain_tiles``, beside the kernel's
-``ms_plain_tiles`` there) and the card's ``nvidia-smi`` name and power
+step, the layered generate, the sharded peels, the Trainer's warm-up
+steps, the slab forward and training step, the band forwards and the grid
+Trainer's warm-up steps; ``peel`` is the register instances, 1 to 16
+slots, timed at 8, ``peel_wide`` the wide instance, timed at 32, whose
+``plain_ms`` is taken on the sampled tiles named in ``plain_tiles``, beside
+the kernel's ``ms_plain_tiles`` there, and ``peel_deep`` the deep
+instance, timed at 128, whose ``plain_ms`` is taken on the sheet stack
+named in ``plain_inputs``, beside the kernel's ``ms_plain_inputs`` there)
+and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": {...}}`` JSON line.
 Each phase ends with its seconds on the host clock. A full report is also
 written to ``chiprun_out/chip_smoke.json``.
@@ -150,12 +196,16 @@ REPLACES = {
     "composite_bwd": "dmesh2_renderer_tpu/ops/pallas_bwd.py:62",
     "peel": "dmesh2_renderer_tpu/ops/peel.py:84",
     "peel_wide": "dmesh2_renderer_tpu/ops/peel.py:84",
+    "peel_deep": "dmesh2_renderer_tpu/ops/peel.py:84",
 }
-# The kernels of each main path: the training step, the layered peel at 8
-# layers (the register instances) and the sharded peel at 32 (the wide one).
+# The kernels of each main path: the training step (and the sharded ones),
+# a forward, the layered peel at 8 layers (the register instances) and the
+# sharded peel at 32 (the wide one) and 128 (the deep one).
 TRAINING_KERNELS = ("pack_stream", "composite_fwd", "composite_bwd")
+FORWARD_KERNELS = ("pack_stream", "composite_fwd")
 LAYERED_KERNELS = ("peel",)
 SHARDED_KERNELS = ("peel_wide",)
+DEEP_KERNELS = ("peel_deep",)
 
 # composite_bwd vs its plain version, per gradient-record column, times
 # max(|column|, 1): the kernel's block sums and the plain version's
@@ -223,11 +273,23 @@ class Sizes:
     adv_capacity: int = 1 << 21
     adv_ray_scales: tuple = (2.0, 0.5)
     adv_ray_layers: tuple = (16, 17)
+    # Above 96 layers (the deep instance): utils/meshes.sheet_stack, 150
+    # sheets of two triangles (three listed twice: exact t ties, some across
+    # 128-entry blocks) seen head-on through a deep_frame window, every ray
+    # crossing all of them; at deep_layers layers. 1,200 tiles: 2,400
+    # half-tile units, more than the persistent grid's blocks, so blocks
+    # loop and reuse their scratch.
+    deep_frame: tuple = (640, 480)                  # width, height
+    deep_half_size: float = 5.0
+    deep_layers: tuple = (97, 128)
+    deep_capacity: int = 1 << 19
     # Tiles the plain peel takes at once on the card: its time is mostly
     # the launches of its L x L merge, one set per group.
     plain_peel_group: int = 1024
-    # Phase 6b: the sharded peel on the layered headline, above 16 layers.
+    # Phase 6b: the sharded peel on the layered headline, above 16 layers
+    # (the wide instance) and above 96 (the deep one).
     sharded_layers: int = 32
+    sharded_deep_layers: int = 128
     # Phase 6c: the Trainer at the JAX package's BASELINE.json config 5.
     trainer_subdiv: int = 3
     trainer_views: int = 64
@@ -235,6 +297,25 @@ class Sizes:
     trainer_capacity: int = 1 << 20
     trainer_steps: int = 8
     profile_iters: int = 5
+    # Phases 6f-6h: the headline as this many face slabs and pixel bands
+    # (one process running every rank's body); the slabs' gradients checked
+    # on config 5's scene at slab_grad_views views.
+    slabs: int = 4
+    bands: int = 4
+    slab_grad_views: int = 4
+    # Phases 6f and 6g compare the sharded frames with one render on the
+    # headline renumbered in depth order under a config where every face's
+    # tiles are in the regular tier and none is culled (the capacity holds
+    # the uncull rectangles): there they must agree. With the headline as
+    # it is, they depart where faces' quantized depths tie, as the JAX
+    # package's do: on at most these shares of the pixels, by at most this.
+    # Each is twice what the H100 showed (0.99% and 2.54% of the pixels, by
+    # up to 0.233).
+    tie_free_kt: int = 64
+    tie_free_capacity: int = 8 << 20
+    slab_tie_share: float = 0.02
+    band_tie_share: float = 0.05
+    tie_departure_max: float = 0.5
 
 
 def nvidia_smi_line() -> str:
@@ -1048,16 +1129,19 @@ def phase_timing(dev, sz: Sizes, report, renderer, s, forward, calls, work,
     return timings
 
 
-def phase_device_busy(sz: Sizes, s, forward):
-    """The card's busy time in the 1080p forward and training step under
-    torch.profiler. Last of all: after the profiler has run, the host
-    launches more slowly, which would move every timing taken after it."""
+def phase_device_busy(sz: Sizes, s, forward, sharded):
+    """The card's busy time in the 1080p forward and training step, and in
+    the ``sharded`` forwards (name -> call: the face slabs and the pixel
+    bands of phases 6f and 6g), under torch.profiler. Last of all: after
+    the profiler has run, the host launches more slowly, which would move
+    every timing taken after it."""
     print("phase 7: device busy time under torch.profiler (the profiler slows "
           "the host, so the share is a lower bound)")
     p = leaves_of(s)
     out = {}
     for key, fn in (("forward", lambda: forward(s)),
-                    ("train_step", lambda: training_step(forward, p))):
+                    ("train_step", lambda: training_step(forward, p)),
+                    *sharded.items()):
         wall, busy = device_busy(fn)
         share = f"{busy / wall:.1%}" if busy > 0 else "not measured"
         print(f"  {key} {sz.width}x{sz.height}: {wall:.3f} ms per call, card busy "
@@ -1119,8 +1203,6 @@ def ray_t(verts, faces, ray_o, rd, ids):
 def compare_peel(kernel_out, plain_out, label, report, pixels=None):
     """Layers and counts of the peel kernel must equal its plain version's
     (on the ``pixels`` mask when given); raises otherwise."""
-    from dmesh2_renderer_tpu_torch.ops.peel import LAYER_INSTANCES
-
     (kl, kc), (pl_, pc) = kernel_out, plain_out
     if pixels is not None:
         kl, kc, pl_, pc = kl[pixels], kc[pixels], pl_[pixels], pc[pixels]
@@ -1130,8 +1212,17 @@ def compare_peel(kernel_out, plain_out, label, report, pixels=None):
           f"layers, {bad_c} in counts; max count {int(kc.max()) if kc.numel() else 0}")
     if bad_l or bad_c:
         raise AssertionError(f"{label}: peel kernel differs from its plain version")
-    name = "peel_wide" if kl.shape[-1] > LAYER_INSTANCES[-1] else "peel"
-    report[name]["max_abs_err"] = max(report[name]["max_abs_err"], 0.0)
+    entry = report[peel_kernel_name(kl.shape[-1])]
+    entry["max_abs_err"] = max(entry["max_abs_err"], 0.0)
+
+
+def peel_kernel_name(num_layers: int) -> str:
+    """The kernel of peel.cu a call at ``num_layers`` launches."""
+    from dmesh2_renderer_tpu_torch.ops.peel import LAYER_INSTANCES, MAX_WIDE_LAYERS
+
+    if num_layers > MAX_WIDE_LAYERS:
+        return "peel_deep"
+    return "peel_wide" if num_layers > LAYER_INSTANCES[-1] else "peel"
 
 
 def peel_generate(lr, idx, scene, num_layers, label, report, sz: Sizes,
@@ -1283,6 +1374,73 @@ def phase_peel_adversarial(dev, sz: Sizes, report):
             compare_peel(peel_layers(*args),
                          peel_layers_plain(*args, group=sz.plain_peel_group),
                          f"adversarial L={num_layers}, rays x {scale}", report)
+
+
+def tie_pairs_across_blocks(args, faces, duplicates):
+    """Pairs (face, its listed-again copy) of the sheet stack that one tile's
+    list holds in two different 128-entry blocks, counted over the tiles of
+    the peel call ``args``."""
+    entry_bf, starts, counts = (x.cpu().numpy() for x in (args[0], args[4], args[5]))
+    sheet = faces[:, 0] // 4
+    pairs = [(ids[0], ids[2]) for ids in (np.nonzero(sheet == d)[0] for d in duplicates)]
+    pairs += [(ids[1], ids[3]) for ids in (np.nonzero(sheet == d)[0] for d in duplicates)]
+    n = 0
+    for start, count in zip(starts, counts):
+        ids = entry_bf[start:start + count]
+        for a, b in pairs:
+            pa, pb = np.nonzero(ids == a)[0], np.nonzero(ids == b)[0]
+            n += int(len(pa) > 0 and len(pb) > 0
+                     and (start + pa[0]) // 128 != (start + pb[0]) // 128)
+    return n
+
+
+def phase_peel_deep(dev, sz: Sizes, report):
+    """The peel above 96 layers (the deep instance) against its plain
+    version on every tile of the sheet stack, at ``sz.deep_layers``; every
+    ray has more hits than that, so counts reach L, exact t ties lie across
+    blocks, and the half tiles outnumber the persistent grid's blocks.
+    Returns the plain version's and the kernel's times on those inputs at
+    the largest L."""
+    from dmesh2_renderer_tpu_torch import LayeredRenderer, RasterConfig
+    from dmesh2_renderer_tpu_torch.ops.peel import (
+        DEEP_BLOCKS_PER_SM, peel_layers, peel_layers_plain)
+    from dmesh2_renderer_tpu_torch.utils.meshes import look_at, perspective, sheet_stack
+
+    w, h = sz.deep_frame
+    duplicates = (20, 62, 125)
+    verts, faces = sheet_stack(half_size=sz.deep_half_size, duplicates=duplicates)
+    f = faces.shape[0]
+    print(f"phase 2d (deep): peel kernel vs plain version on every tile, sheet "
+          f"stack ({f} faces: 150 sheets, {duplicates} listed twice), {w}x{h}, "
+          f"L in {sz.deep_layers}")
+    mv = look_at((0.0, 0.0, 3.0), (0.0, 0.0, 0.0))[None]
+    proj = perspective(60.0, w / h)[None]
+    lr = LayeredRenderer(mv, proj, w, h, config=RasterConfig(
+        binning_capacity=sz.deep_capacity, max_tiles_per_face=64, num_giant_faces=512))
+    scene = (verts, faces, np.zeros((1, 4), np.int32), np.full((f, 2), -1, np.int32),
+             np.zeros((1, 4), np.int32), np.ones(f, np.int32))
+    out = {}
+    for num_layers in sz.deep_layers:
+        _, counts, (args, _) = peel_generate(lr, [0], scene, num_layers, "sheet stack",
+                                             report, sz)
+        crossing = tie_pairs_across_blocks(args, faces, duplicates)
+        units = 2 * args[4].shape[0]
+        grid = DEEP_BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
+        print(f"    binning num_rendered={int(lr.last_aux[0])} num_truncated="
+              f"{int(lr.last_aux[1])}; counts min {int(counts.min())} max "
+              f"{int(counts.max())}; tied pairs across 128-entry blocks {crossing}; "
+              f"{units} half-tile units over a persistent grid of {min(units, grid)} "
+              "blocks")
+        if int(counts.min()) != num_layers or crossing == 0 or units <= grid:
+            raise AssertionError(f"sheet stack at L={num_layers}: counts "
+                                 f"{int(counts.min())}-{int(counts.max())}, {crossing} "
+                                 f"tied pairs across blocks, {units} units, grid {grid}")
+    plain_ms, _ = timed_once(lambda: peel_layers_plain(*args, group=sz.plain_peel_group))
+    ms, _ = time_ms(lambda: peel_layers(*args), sz.reps)
+    print(f"    at L={sz.deep_layers[-1]}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    out.update(plain_ms=plain_ms, ms=ms,
+               inputs=f"sheet stack {w}x{h}, L={sz.deep_layers[-1]}, every tile")
+    return out
 
 
 def layered_scene(sz: Sizes):
@@ -1553,6 +1711,63 @@ def phase_sharded_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, mask,
                 peel_wide_sampled_ms=sub_ms, peel_wide_sampled_plain_ms=plain_ms)
 
 
+def phase_sharded_deep_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, mask,
+                            peel_work, deep, card):
+    """generate_layers_sharded on a world of one at L = sz.sharded_deep_layers
+    (the deep instance) on the layered headline: its first sz.sharded_layers
+    layers and counts equal those of functional.generate_layers at that L
+    (the prefix property), on every pixel; all its layers equal the plain
+    version's on the sampled tiles (``tiles``, their pixels ``mask``); the
+    kernel's time beside the full-scan bound. ``deep``: the plain version's
+    and the kernel's times on the sheet stack (phase 2d)."""
+    from dmesh2_renderer_tpu_torch import functional
+    from dmesh2_renderer_tpu_torch.ops.peel import (
+        deep_occupancy, peel_layers, peel_layers_plain)
+    from dmesh2_renderer_tpu_torch.parallel import generate_layers_sharded, make_view_mesh
+
+    n_layers, n_ref, w, h = sz.sharded_deep_layers, sz.sharded_layers, sz.width, sz.height
+    verts, faces, exist = scene[0], scene[1], scene[5]
+    mv, proj, config = lr.mv, lr.proj, lr.config
+    print(f"phase 6b (deep): generate_layers_sharded, world of one, layered headline "
+          f"({mv.shape[0]} views at {w}x{h}), L={n_layers}")
+    reset_launches(kernels)
+    with captured_kernel_calls(functional, ("peel_layers",)) as calls:
+        layers, counts, (nr, nt) = generate_layers_sharded(
+            make_view_mesh(), verts, faces, exist, mv, proj, w, h, n_layers, config)
+    launches = read_launches(kernels)
+    print(f"  launches on the deep sharded peel path: {launches}")
+    record_launches(report, launches, DEEP_KERNELS, "deep sharded peel")
+    ref_l, ref_c, _ = functional.generate_layers(verts, faces, exist, mv, proj, w, h,
+                                                 n_ref, config)
+    same = (torch.equal(layers[..., :n_ref], ref_l)
+            and torch.equal(counts.clamp(max=n_ref), ref_c))
+    print(f"  first {n_ref} layers equal to generate_layers at L={n_ref} on every "
+          f"pixel: {same}; num_truncated={int(nt)}; counts.max() {int(counts.max())}; "
+          f"pixels with more than {n_ref} layers {int((counts > n_ref).sum())}")
+    if not same or int(nt) != 0:
+        raise AssertionError("the deep peel's prefix differs from generate_layers")
+    args = calls["peel_layers"][0]
+    plain_ms, plain = timed_once(lambda: peel_layers_plain(
+        *args, tiles=tiles, group=sz.plain_peel_group))
+    compare_peel(calls["peel_layers"][1], plain,
+                 f"L={n_layers} {w}x{h}, {tiles.numel()} sampled tiles", report,
+                 pixels=mask)
+    print(f"    plain version on those tiles {plain_ms:.3f} ms")
+    del plain
+    ms, runs = time_ms(lambda: peel_layers(*args), sz.reps)
+    bound, bound_by, _, _, work = peel_bound(args, peel_work)
+    report["peel_deep"].update(ms=ms, plain_ms=deep["plain_ms"], bound_ms=bound,
+                               bound_by=bound_by, library_ms=None,
+                               plain_inputs=deep["inputs"], ms_plain_inputs=deep["ms"])
+    occ = deep_occupancy()
+    print(f"  peel_deep at L={n_layers}: {ms:.3f} ms (runs {[round(t, 3) for t in runs]}), "
+          f"full-scan bound {bound:.3f} ms ({bound_by}; {work['bytes']} bytes, "
+          f"{work['ops']} operations); deep instance {occ}; on {card}")
+    return dict(peel_deep_layers=n_layers, peel_deep_ms=ms, peel_deep_runs_ms=runs,
+                peel_deep_bound_ms=bound, peel_deep_resources=occ,
+                peel_deep_sheet_stack=deep)
+
+
 def config5_scene(sz: Sizes):
     """The JAX package's BASELINE.json config 5 (benchmarks/run.py:167-211):
     icosphere(3), sz.trainer_views orbit cameras at sz.trainer_res^2,
@@ -1695,6 +1910,421 @@ def phase_profile_render(dev, sz: Sizes, card):
     return dict(profile_render=rep)
 
 
+def grad_errors(got, want, label):
+    """tests/test_face_parallel.py's bound, leaf by leaf: |got - want| <
+    5e-5 x max(|want|, 1e-3) + 1e-7. Prints the largest error per leaf;
+    raises when one exceeds its bound."""
+    msgs = []
+    for name, g, r in zip(("verts", "verts_color", "faces_opacity"), got, want):
+        scale = max(float(r.abs().max()), 1e-3)
+        err = float((g - r).abs().max())
+        msgs.append(f"{name} {err:.3g}/{scale:.3g}")
+        if not (torch.isfinite(g).all() and err < 5e-5 * scale + 1e-7):
+            raise AssertionError(f"{label}: {name} gradient error {err} vs scale {scale}")
+    print(f"  {label}: max|err|/scale " + ", ".join(msgs))
+
+
+def depth_ranked(s, mv, proj, w, h):
+    """The one-view scene ``s`` with its faces renumbered in their slab
+    order (the stable ranks of the unquantized depth): a face's id then
+    follows its depth, so one render breaks ties of the quantized depth as
+    the slabs and the bands do, and they must agree with it."""
+    from dmesh2_renderer_tpu_torch.parallel import face_parallel as FP
+
+    order = FP.depth_slab_order(s["verts"], s["faces"], mv, proj, w, h)[0].long()
+    return dict(s, faces=s["faces"][order].contiguous(),
+                faces_opacity=s["faces_opacity"][order].contiguous(),
+                faces_intense=s["faces_intense"][:, order].contiguous())
+
+
+def tie_departure(err, allowed, share, label, sz: Sizes):
+    """The pixels where a sharded frame departs from one render by more
+    than ``allowed``: printed, and held to ``share`` of the frame and
+    sz.tie_departure_max. Returns (count, largest error)."""
+    over = err > allowed
+    count, worst, n_pixels = int(over.sum()), float(err.max()), err.numel()
+    print(f"  {label}: {count} of {n_pixels} pixels ({100.0 * count / n_pixels:.4f}%) "
+          f"depart by more than that, the largest by {worst:.3g} (allowed: "
+          f"{100.0 * share:g}% of the pixels, by at most {sz.tie_departure_max:g})")
+    if count > share * n_pixels or worst > sz.tie_departure_max:
+        raise AssertionError(f"{label}: {count} pixels depart, up to {worst}")
+    return count, worst
+
+
+def phase_face_slabs(dev, sz: Sizes, report, kernels, card):
+    """Face slabs at full width: the renderer headline as sz.slabs depth
+    slabs, the per-rank body for every slab in one process, folded with the
+    over operator. The kernels of one slab forward and backward against
+    their plain versions; the fold against functional.render on the scene
+    renumbered in depth order with no giant tier and no exact tile cull
+    (exact up to the early stop), and on the headline as it is (the
+    departure at depth ties bounded); render_faces_sharded on a world of
+    one; the gradients of the slabs summed against autograd of the
+    unsharded loss on config 5's scene; the times."""
+    from dmesh2_renderer_tpu_torch import render, render_partial
+    from dmesh2_renderer_tpu_torch.parallel import (
+        SceneParams, make_face_mesh, render_faces_sharded)
+    from dmesh2_renderer_tpu_torch.parallel import face_parallel as FP
+    from dmesh2_renderer_tpu_torch.utils.config import T_EPS
+
+    n = sz.slabs
+    s, mv, proj, config = headline_scene(dev, sz)
+    mv, proj = (torch.as_tensor(x, device=dev) for x in (mv, proj))
+    w, h = sz.width, sz.height
+    print(f"phase 6f: face slabs, the renderer headline ({sz.n_faces} faces, {w}x{h}) "
+          f"as {n} depth slabs, the per-rank body for each in one process")
+    bg = s["background"]
+
+    def slabs(sc, cfg, p=None):
+        p = p or SceneParams(sc["verts"], sc["verts_color"], sc["faces_opacity"])
+        order = FP.depth_slab_order(p.verts, sc["faces"], mv, proj, w, h)
+        return [FP.render_slab(p, sc["faces"], sc["faces_intense"], mv, proj, order, w,
+                               h, 1.0, cfg, k, n) for k in range(n)]
+
+    def fold(parts):
+        c, d, t = FP.composite_slabs(*(torch.stack([q[i] for q in parts])
+                                       for i in range(3)))
+        return c + t[..., None] * bg, 1.0 - ((d + t) + 1.0) / 2.0
+
+    def against_render(sc, cfg):
+        """The fold vs one render of ``sc``: (colour and depth error per
+        pixel, the strict bound 2e-5 + T where one render stops early, the
+        mask of those pixels, the slabs' entries and truncations, one
+        render's aux)."""
+        reset_launches(kernels)
+        with torch.no_grad():
+            parts = slabs(sc, cfg)
+        launches = read_launches(kernels)
+        record_launches(report, launches, FORWARD_KERNELS, "face-slab forward")
+        color, depth = fold(parts)
+        ref_c, ref_draw, ref_t, aux = render_partial(*scene_args(sc)[:5], mv, proj, bg,
+                                                     w, h, 1.0, cfg)
+        err = torch.maximum((color - ref_c).abs().amax(dim=-1),
+                            (depth - 1.0 + (ref_draw + 1.0) / 2.0).abs())
+        # Where one render stops early (final T < T_EPS) each slab still
+        # composites on its own, so the fold adds the later slabs' colour and
+        # depth times that T (both at most 1 here): the bound grows by it.
+        stopped = ref_t < T_EPS
+        bound = 2e-5 + torch.where(stopped, ref_t, torch.zeros_like(ref_t))
+        nt = sum(int(q[4]) for q in parts)
+        print(f"  launches on the {n}-slab forward: {launches}; slab entries "
+              f"{[int(q[3]) for q in parts]} (one render {int(aux.num_rendered)}), "
+              f"num_truncated {nt}")
+        if nt or int(aux.num_truncated) or not torch.isfinite(color).all():
+            raise AssertionError("face slabs: truncated or not finite")
+        return err, bound, stopped
+
+    # Exact: the faces renumbered in depth order, no giant tier, no exact
+    # tile cull (a slab ranks faces by their depth, then id; one render by
+    # the quantized depth, then tier, then id).
+    ranked = depth_ranked(s, mv, proj, w, h)
+    tie_free = dataclasses.replace(config, max_tiles_per_face=sz.tie_free_kt,
+                                   num_giant_faces=0, exact_tile_cull=False,
+                                   binning_capacity=sz.tie_free_capacity)
+    err, bound, stopped = against_render(ranked, tie_free)
+
+    def worst(where):
+        return float(err[where].max()) if bool(where.any()) else 0.0
+
+    ratio = float(err.div(bound).max())
+    print(f"  {n} slabs folded vs functional.render, faces in depth order, no giant "
+          f"tier, no exact tile cull: max|err| {worst(~stopped):.3g} on the "
+          f"{int((~stopped).sum())} pixels where one render does not stop early; "
+          f"{worst(stopped):.3g} on the {int(stopped.sum())} where it does (final T < "
+          f"{T_EPS}), within 2e-5 + T; largest error / bound {ratio:.3g}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"face slabs differ from render: error / bound {ratio}")
+    strict_err = float(err.max())
+    # The headline as it is: the fold departs from one render where faces'
+    # quantized depths tie, as the JAX package's slabs do.
+    err, bound, _ = against_render(s, config)
+    departed = tie_departure(err, bound, sz.slab_tie_share,
+                             f"headline config, {n} slabs vs functional.render "
+                             "(strict bound 2e-5 + T)", sz)
+    one_c, one_d, _ = render_faces_sharded(make_face_mesh(), *scene_args(ranked)[:5],
+                                           mv, proj, bg, w, h, 1.0, config)
+    ref_c, ref_d, _ = render(*scene_args(ranked)[:5], mv, proj, bg, w, h, 1.0, config)
+    err1 = max(float((one_c - ref_c).abs().max()), float((one_d - ref_d).abs().max()))
+    print(f"  render_faces_sharded, world of one, headline config, faces in depth "
+          f"order, vs functional.render: max|err| {err1:.3g}")
+    if not err1 <= 2e-5:
+        raise AssertionError(f"render_faces_sharded on a world of one: {err1}")
+    del one_c, one_d, ref_d, err, bound
+
+    # The training step: the per-rank bodies, each slab backpropagated with
+    # the combine's cotangents into the same leaves (their .grad sums the
+    # slabs, as the all-reduce would), against one render's step.
+    target = torch.zeros_like(ref_c)
+    leaves = SceneParams(*(s[k].detach().clone().requires_grad_(True)
+                           for k in ("verts", "verts_color", "faces_opacity")))
+    faces, fi = s["faces"], s["faces_intense"]
+
+    def slab_step():
+        for x in leaves:
+            x.grad = None
+        parts = slabs(s, config, leaves)
+        stacked = [torch.stack([q[i].detach() for q in parts]) for i in range(3)]
+        _, g_c, g_t = FP.slab_cotangents(*stacked, target, bg)
+        for k, q in enumerate(parts):
+            torch.autograd.backward([q[0], q[2]], [g_c[k], g_t[k]])
+
+    def one_step():
+        for x in leaves:
+            x.grad = None
+        c, _, _ = render(leaves.verts, faces, leaves.verts_color, leaves.faces_opacity,
+                         fi, mv, proj, bg, w, h, 1.0, config)
+        torch.mean((c - target) ** 2).backward()
+
+    reset_launches(kernels)
+    with captured_kernel_calls(copy=True) as calls:
+        slab_step()
+    launches = read_launches(kernels)
+    record_launches(report, launches, TRAINING_KERNELS, "face-slab training step")
+    print(f"  launches on one {n}-slab training step: {launches}")
+    # The kernels at a slab's own inputs: the last slab's forward and
+    # backward of that step.
+    label = f"slab {n - 1} of {n}, {w}x{h}"
+    check_kernels(calls, label, report)
+    check_backward(calls, label, report)
+    del calls
+    fwd_ms, fwd_runs = time_ms(lambda: fold(slabs(s, config)), sz.reps)
+    one_ms, _ = time_ms(lambda: render(*scene_args(s)[:5], mv, proj, bg, w, h, 1.0,
+                                       config), sz.reps)
+    step_ms, _ = time_ms(slab_step, sz.reps)
+    one_step_ms, _ = time_ms(one_step, sz.reps)
+    print(f"  {n}-slab forward {fwd_ms:.3f} ms (runs {[round(t, 3) for t in fwd_runs]}) "
+          f"vs one render {one_ms:.3f} ms; {n}-slab training step {step_ms:.3f} ms vs "
+          f"one {one_step_ms:.3f} ms; on {card}")
+
+    # Gradients on config 5's scene (sz.slab_grad_views views).
+    params5, faces5, batch = config5_scene(sz)
+    b, r = sz.slab_grad_views, sz.trainer_res
+    faces5 = torch.as_tensor(faces5, device=dev)
+    fi5, mv5, proj5, tgt5, bg5 = (torch.as_tensor(x[:b] if x.ndim > 1 else x,
+                                                  device=dev) for x in batch)
+    tgt5 = torch.as_tensor(np.random.default_rng(11).uniform(
+        size=(b, r, r, 3)).astype(np.float32), device=dev)
+    config5 = dataclasses.replace(config, binning_capacity=sz.trainer_capacity)
+
+    def leaves5():
+        return SceneParams(*(torch.as_tensor(x, device=dev).clone().requires_grad_(True)
+                             for x in params5))
+
+    want = leaves5()
+    c, _, _ = render(want.verts, faces5, want.verts_color, want.faces_opacity, fi5,
+                     mv5, proj5, bg5, r, r, 1.0, config5)
+    torch.mean((c - tgt5) ** 2).backward()
+    got = leaves5()
+    order = FP.depth_slab_order(got.verts, faces5, mv5, proj5, r, r)
+    parts = [FP.render_slab(got, faces5, fi5, mv5, proj5, order, r, r, 1.0, config5,
+                            k, n) for k in range(n)]
+    stacked = [torch.stack([q[i].detach() for q in parts]) for i in range(3)]
+    _, g_c, g_t = FP.slab_cotangents(*stacked, tgt5, bg5)
+    for k, q in enumerate(parts):
+        torch.autograd.backward([q[0], q[2]], [g_c[k], g_t[k]])
+    grad_errors([x.grad for x in got], [x.grad for x in want],
+                f"config 5 scene ({b} views at {r}x{r}), {n} slabs' summed gradients "
+                "vs autograd of the unsharded loss")
+    return torch.no_grad()(lambda: fold(slabs(s, config))), dict(
+        face_slabs=n, face_slab_forward_ms=fwd_ms, face_slab_forward_runs_ms=fwd_runs,
+        face_one_forward_ms=one_ms, face_slab_step_ms=step_ms,
+        face_one_step_ms=one_step_ms, face_slab_depth_ranked_err=strict_err,
+        face_slab_tie_departure=departed)
+
+
+def phase_pixel_bands(dev, sz: Sizes, report, kernels, card):
+    """Pixel bands at full width: the renderer headline as sz.bands bands,
+    the per-rank body for every band in one process, stitched. The kernels
+    of one band off the tile grid against their plain versions; the stitch
+    against functional.render on the scene renumbered in depth order with no
+    giant tier and no exact tile cull (within 1e-6), and on the headline as
+    it is (the departure at depth ties bounded); render_pixels_sharded on a
+    world of one; the times."""
+    from dmesh2_renderer_tpu_torch import render
+    from dmesh2_renderer_tpu_torch.parallel import make_pixel_mesh, render_pixels_sharded
+    from dmesh2_renderer_tpu_torch.parallel import patch_parallel as PP
+
+    n = sz.bands
+    s, mv, proj, config = headline_scene(dev, sz)
+    mv, proj = (torch.as_tensor(x, device=dev) for x in (mv, proj))
+    w, h = sz.width, sz.height
+    band = h // n
+    print(f"phase 6g: pixel bands, the renderer headline ({w}x{h}) as {n} bands of "
+          f"{band} rows, the per-rank body for each in one process")
+
+    def args(sc, cfg):
+        return (*scene_args(sc)[:5], mv, proj, sc["background"], w, h, 1.0, cfg)
+
+    def bands(sc, cfg):
+        out = [PP.render_band(*args(sc, cfg), k, n) for k in range(n)]
+        color = torch.cat([o[0] for o in out], dim=1)
+        depth = 1.0 - (torch.cat([o[1] for o in out], dim=1) + 1.0) / 2.0
+        return color, depth, sum(int(o[3].num_truncated) for o in out)
+
+    # The kernels at band 1's own inputs: its origin y0 is off the tile grid.
+    with torch.no_grad(), captured_kernel_calls() as calls:
+        PP.render_band(*args(s, config), 1, n)
+    check_kernels(calls, f"band 1 of {n} (rows {band}-{2 * band - 1}), {w}x{h}", report)
+    del calls
+
+    # A band tiles a face's rows from its own origin and quantizes depth for
+    # its own tile grid, so ties of the quantized depth, a face's tile moving
+    # between the binning's tiers and a face the exact cull keeps in one
+    # tiling only can each change a pixel's order. With the faces in depth
+    # order, no giant tier and no exact cull, no order changes.
+    ranked = depth_ranked(s, mv, proj, w, h)
+    tie_free = dataclasses.replace(config, max_tiles_per_face=sz.tie_free_kt,
+                                   num_giant_faces=0, exact_tile_cull=False,
+                                   binning_capacity=sz.tie_free_capacity)
+    errs = {}
+    for label, sc, cfg in (("faces in depth order, no giant tier, no exact tile cull",
+                            ranked, tie_free), ("headline config", s, config)):
+        reset_launches(kernels)
+        with torch.no_grad():
+            color, depth, nt = bands(sc, cfg)
+        launches = read_launches(kernels)
+        record_launches(report, launches, FORWARD_KERNELS, "pixel-band forward")
+        with torch.no_grad():
+            ref_c, ref_d, aux = render(*args(sc, cfg))
+        err = torch.maximum((color - ref_c).abs().amax(dim=-1), (depth - ref_d).abs())
+        same = torch.equal(color, ref_c) and torch.equal(depth, ref_d)
+        errs[label] = float(err.max())
+        print(f"  {label}: launches {launches}; num_truncated {nt} (one render "
+              f"{int(aux.num_truncated)}); {n} bands stitched vs functional.render: "
+              f"max|err| {errs[label]:.3g}, {int((err > 1e-6).sum())} pixels above "
+              f"1e-6; bit-identical {same}")
+        if nt or int(aux.num_truncated) or not torch.isfinite(color).all():
+            raise AssertionError(f"pixel bands, {label}: truncated or not finite")
+        if sc is ranked and not errs[label] <= 1e-6:
+            raise AssertionError(f"pixel bands differ from render: {errs}")
+    departed = tie_departure(err, 1e-6, sz.band_tie_share,
+                             f"headline config, {n} bands vs functional.render", sz)
+    one = render_pixels_sharded(make_pixel_mesh(), *args(s, config))
+    ref_c, ref_d, _ = render(*args(s, config))
+    same1 = torch.equal(one[0], ref_c) and torch.equal(one[1], ref_d)
+    print(f"  render_pixels_sharded, world of one, equal to functional.render: {same1}")
+    if not same1:
+        raise AssertionError("render_pixels_sharded on a world of one differs from render")
+    del one, ref_c, ref_d
+    with torch.no_grad():
+        band_ms, band_runs = time_ms(lambda: bands(s, config), sz.reps)
+        one_ms, _ = time_ms(lambda: render(*args(s, config)), sz.reps)
+    print(f"  {n}-band forward {band_ms:.3f} ms (runs {[round(t, 3) for t in band_runs]}) "
+          f"vs one render {one_ms:.3f} ms (headline config); on {card}")
+    return torch.no_grad()(lambda: bands(s, config)), dict(
+        pixel_bands=n, band_forward_ms=band_ms, band_forward_runs_ms=band_runs,
+        band_one_forward_ms=one_ms, band_errs=errs, band_tie_departure=departed)
+
+
+def phase_grid_trainer(dev, sz: Sizes, report, kernels, card):
+    """The Trainer on a ("dp", "sp") world of one at config 5 (the grid
+    step): the loss falls, the three renderer kernels launch, ms per step.
+    Then a (2, 2) grid in one process: the four (view half, band) bodies,
+    their losses and gradients averaged as the all-reduce would, against
+    make_sharded_train_step on a world of one."""
+    import functools
+
+    from dmesh2_renderer_tpu_torch import RasterConfig
+    from dmesh2_renderer_tpu_torch.parallel import (
+        SceneParams, make_mesh, make_sharded_train_step, make_view_mesh)
+    from dmesh2_renderer_tpu_torch.parallel import patch_parallel as PP
+    from dmesh2_renderer_tpu_torch.train import Trainer
+
+    params, faces, batch = config5_scene(sz)
+    r, b = sz.trainer_res, sz.trainer_views
+    print(f"phase 6h: Trainer on a (1, 1) (\"dp\", \"sp\") mesh, config 5 "
+          f"({b} views at {r}x{r}, Adam 1e-2)")
+    config = RasterConfig(binning_capacity=sz.trainer_capacity)
+    opt = functools.partial(torch.optim.Adam, lr=1e-2)
+    tr = Trainer(make_mesh((1, 1), ("dp", "sp")), opt, faces, r, r, 1.0, config)
+    state = tr.init_state(params)
+    batch = tuple(torch.as_tensor(x, device=dev) for x in batch)
+    reset_launches(kernels)
+    losses = []
+    with captured_kernel_calls(copy=True) as calls:  # warm-up; the first step
+        state, loss = tr.step(state, *batch)
+    losses.append(float(loss))
+    state, loss = tr.step(state, *batch)
+    losses.append(float(loss))
+    launches = read_launches(kernels)
+    record_launches(report, launches, TRAINING_KERNELS, "grid Trainer")
+    print(f"  launches in the two warm-up steps: {launches}; step "
+          f"{tr.step_fn.__qualname__.split('.')[0]}")
+    # The kernels' outputs of the first step vs their plain versions.
+    label = f"grid Trainer {b}x{r}x{r}"
+    check_kernels(calls, label, report)
+    check_backward(calls, label, report)
+    del calls
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    step_losses = []
+    for _ in range(sz.trainer_steps):
+        state, loss = tr.step(state, *batch)
+        step_losses.append(loss)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / sz.trainer_steps
+    losses += [float(x) for x in step_losses]
+    print("  loss per step: " + ", ".join(f"{x:.6g}" for x in losses))
+    print(f"  {ms:.3f} ms per step ({1e3 / ms:.2f} steps/s) over {sz.trainer_steps} "
+          f"steps after 2 warm-up steps, on {card}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the grid Trainer's loss did not fall: {losses}")
+
+    # A (2, 2) grid in one process against the view step on a world of one.
+    faces_t = torch.as_tensor(faces, device=dev)
+    fi, mv, proj, _, bg = batch
+    tgt = torch.as_tensor(np.random.default_rng(13).uniform(
+        size=(b, r, r, 3)).astype(np.float32), device=dev)
+
+    def leaves():
+        return SceneParams(*(torch.as_tensor(x, device=dev).clone().requires_grad_(True)
+                             for x in params))
+
+    got = leaves()
+    grads = [torch.zeros_like(x) for x in got]
+    loss = 0.0
+    band, half = r // 2, b // 2
+    with captured_kernel_calls(copy=True) as calls:
+        for i in range(2):
+            v = slice(i * half, (i + 1) * half)
+            for k in range(2):
+                part, _ = PP.band_loss(got, faces_t, fi[v], mv[v], proj[v],
+                                       tgt[v, k * band:(k + 1) * band], bg, r, r, 1.0,
+                                       config, k, 2)
+                for g, d in zip(grads, torch.autograd.grad(part, list(got))):
+                    g += d
+                loss += float(part.detach())
+    loss /= 4
+    # The kernels at the last body's own inputs: band 1 of the second half
+    # of the views.
+    label = f"(2, 2) grid body (1, 1): {half} views, rows {band}-{r - 1} of {r}x{r}"
+    check_kernels(calls, label, report)
+    check_backward(calls, label, report)
+    del calls
+    grads = [g / 4 for g in grads]
+    step = make_sharded_train_step(make_view_mesh(), functools.partial(
+        torch.optim.SGD, lr=0.0), faces, r, r, 1.0, config)
+    want = leaves()
+    _, _, want_loss, _ = step(want, step.init(want), fi, mv, proj, tgt, bg)
+    rel = abs(loss - float(want_loss)) / abs(float(want_loss))
+    msgs, ok = [], rel <= 1e-5
+    for name, g, x in zip(("verts", "verts_color", "faces_opacity"), grads, want):
+        scale = max(float(x.grad.abs().max()), 1.0)
+        err = float((g - x.grad).abs().max())
+        msgs.append(f"{name} {err:.3g}/{scale:.3g}")
+        ok = ok and err <= 1e-6 * scale
+    print(f"  (2, 2) grid bodies vs make_sharded_train_step (world of one): loss "
+          f"{loss:.7g} vs {float(want_loss):.7g} (relative {rel:.3g}); gradients "
+          f"max|err|/scale " + ", ".join(msgs))
+    if not ok:
+        raise AssertionError("the (2, 2) grid bodies differ from the view step")
+    return dict(grid_trainer_ms_per_step=ms, grid_trainer_steps_per_s=1e3 / ms,
+                grid_trainer_losses=losses, grid_2x2_loss_rel_err=rel)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -1717,9 +2347,10 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {k.name}: {line.strip()}")
     resources = {k.name: k.occupancy() for k in _kernels.KERNELS}
-    from dmesh2_renderer_tpu_torch.ops.peel import wide_occupancy
+    from dmesh2_renderer_tpu_torch.ops.peel import deep_occupancy, wide_occupancy
     for n in (32, 64):
         resources[f"peel_wide_{n}"] = wide_occupancy(n)
+    resources["peel_deep"] = deep_occupancy()
     for name, occ in resources.items():
         print(f"  {name}: {occ}")
 
@@ -1741,6 +2372,7 @@ def main() -> int:
     run("2", phase_kernel_checks, dev, sz, report)
     run("2b", phase_layered_checks, dev, sz, report)
     run("2d", phase_peel_adversarial, dev, sz, report)
+    deep = run("2d-deep", phase_peel_deep, dev, sz, report)
     run("2c", phase_stress, dev, sz, report)
     renderer, s, forward, calls, work, bwd_work = run(
         "3", phase_main_path, dev, sz, report, counted)
@@ -1757,11 +2389,20 @@ def main() -> int:
     del peel_call
     timings.update(run("6b", phase_sharded_peel, dev, sz, report, counted, lr, scene_t,
                        tiles, mask, timings["peel_work"]))
+    timings.update(run("6b-deep", phase_sharded_deep_peel, dev, sz, report, counted, lr,
+                       scene_t, tiles, mask, timings["peel_work"], deep, card))
     del lr, scene_t, tiles, mask
     timings.update(run("6c", phase_trainer, dev, sz, report, counted, card))
     timings.update(run("6d", phase_suggest_config, dev, sz))
     timings.update(run("6e", phase_profile_render, dev, sz, card))
-    timings.update(run("7", phase_device_busy, sz, s, forward))
+    # The sharded paths before phase 7 (the profiler slows later host work).
+    slab_forward, t = run("6f", phase_face_slabs, dev, sz, report, counted, card)
+    timings.update(t)
+    band_forward, t = run("6g", phase_pixel_bands, dev, sz, report, counted, card)
+    timings.update(t)
+    timings.update(run("6h", phase_grid_trainer, dev, sz, report, counted, card))
+    timings.update(run("7", phase_device_busy, sz, s, forward, {
+        f"{sz.slabs}_slab_forward": slab_forward, f"{sz.bands}_band_forward": band_forward}))
     timings.update(phase_s=phase_s)
 
     kernels_line = {"kernels": [report[k.name] for k in counted]}

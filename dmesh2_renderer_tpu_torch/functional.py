@@ -50,13 +50,31 @@ def render_partial(
     to one shared window of the full frame.
     """
     config = config or RasterConfig()
+    valence_cache.check(faces, valence_cap(config), len(verts))
+    return render_partial_unchecked(
+        verts, faces, verts_color, faces_opacity, faces_intense, mv, proj,
+        background, width, height, aa_temperature, config, patch_origin,
+        patch_shape, device)
+
+
+def render_partial_unchecked(
+    verts, faces, verts_color, faces_opacity, faces_intense, mv, proj,
+    background, width: int, height: int, aa_temperature: float = 1.0,
+    config: RasterConfig | None = None, patch_origin=None,
+    patch_shape: tuple[int, int] | None = None, device=None,
+):
+    """:func:`render_partial` without its valence and vertex-index guard,
+    for callers that checked the whole ``faces`` once: the sharded entry
+    points render subsets of it (a depth slab, padded with ``(0, 0, 0)``
+    rows, for every view), which the JAX package never checks (there they
+    are traced values) and which would cost a host sync and a hash each."""
+    config = config or RasterConfig()
     if (patch_origin is None) != (patch_shape is None):
         raise ValueError(
             "patch_origin and patch_shape must be passed together "
             f"(got patch_origin={patch_origin!r}, patch_shape={patch_shape!r})"
         )
     dev = resolve_device(device)
-    valence_cache.check(faces, valence_cap(config), len(verts))
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)

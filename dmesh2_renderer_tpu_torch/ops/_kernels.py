@@ -9,8 +9,8 @@ tests import every module without a CUDA toolchain.
 
 Each kernel object carries ``launches``, a count of its successful launches:
 its wrapper calls :meth:`Kernel.launched` right after the C launch function
-returns, and nowhere else. The peel's wide instance, a second kernel in
-``peel.cu``, is counted apart (``PEEL_WIDE``).
+returns, and nowhere else. The peel's wide and deep instances, two more
+kernels in ``peel.cu``, are counted apart (``PEEL_WIDE``, ``PEEL_DEEP``).
 """
 
 from __future__ import annotations
@@ -184,27 +184,54 @@ PEEL = Kernel("peel", "peel.cu", [
 
 
 class Instance:
-    """A second kernel of another :class:`Kernel`'s source, launched through
-    the same C function but counted on its own."""
+    """A second kernel of another :class:`Kernel`'s source, counted on its
+    own. It is launched through the kernel's C launch function, or through
+    the C function ``launch`` of that library with ``argtypes``."""
 
-    def __init__(self, name: str, kernel: Kernel):
+    def __init__(self, name: str, kernel: Kernel, launch: str | None = None,
+                 argtypes=()):
         self.name = name
         self.kernel = kernel
         self.source = kernel.source
+        self.launch = launch
+        self.argtypes = list(argtypes)
         self.launches = 0
+
+    def load(self):
+        """The C launch function (the kernel's own when ``launch`` is None)."""
+        lib = self.kernel.load()
+        if self.launch is None:
+            return getattr(lib, f"{self.kernel.name}_launch")
+        fn = getattr(lib, self.launch)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
 
     def launched(self, err: int) -> None:
         self.kernel.check(err, self.name)
         self.launches += 1
 
 
-# peel.cu's wide instance (17 .. MAX_LAYERS slots in shared memory), apart
+# peel.cu's wide instance (17 .. 96 slots in shared memory) and deep
+# instance (above 96: the same code, its slots in a global scratch), apart
 # from its register instances (1 .. 16 slots), which PEEL counts.
 PEEL_WIDE = Instance("peel_wide", PEEL)
+PEEL_DEEP = Instance("peel_deep", PEEL, "peel_deep_launch", [
+    P, L,                 # entry_bf, R
+    P, P, P, I,           # faces, verts, faces_existence, F
+    P, P, P, I,           # tile_starts, tile_counts, tile_ids (or null), n_blocks
+    P, P,                 # ray_o, ray_d
+    I, I, I, I,           # H, W, gx, gy
+    I,                    # slot count = layers written
+    P, P,                 # layers, counts
+    P, I,                 # scratch, persistent blocks
+    P,                    # stream
+])
 
 KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD, PEEL)
-# Everything with a launch count: the built kernels and the peel's wide one.
-COUNTED = KERNELS + (PEEL_WIDE,)
+# Everything with a launch count: the built kernels and the peel's wide and
+# deep ones.
+COUNTED = KERNELS + (PEEL_WIDE, PEEL_DEEP)
 
 
 def build_all() -> None:

@@ -57,8 +57,12 @@ LAYER_INSTANCES = (1, 2, 4, 8, 16)
 # Above 16 the kernel's wide instance runs with exactly L slots, kept with
 # the block's list in shared memory (2 KiB per slot for the 128 pixels of a
 # half tile); this many fit beside its face staging in the 227 KiB a block
-# may opt in to on sm_90.
-MAX_LAYERS = 96
+# may opt in to on sm_90. Above it the deep instance runs the same code with
+# both arrays in a global scratch, sized by its resident blocks.
+MAX_WIDE_LAYERS = 96
+# The deep instance's persistent blocks per SM: 32 warps, as the 8-slot
+# instance runs; its scratch takes 2 KiB x L per block.
+DEEP_BLOCKS_PER_SM = 8
 
 # Float operations counted from csrc/peel.cu. Per entry (one thread per
 # face of a block): edges, origin offset, q = t0 x e1 and q . e2 (23). Per
@@ -288,25 +292,28 @@ def peel_layers_plain(entry_bf, faces, verts, faces_existence, tile_starts,
 
 
 def peel_instance(num_layers: int) -> int:
-    """The kernel's slot count for ``num_layers``: the smallest register
-    instance that covers it, else ``num_layers`` itself (the wide instance).
-    Raises above ``MAX_LAYERS``."""
+    """The kernel's slot count for ``num_layers`` >= 1: the smallest register
+    instance that covers it, else ``num_layers`` itself (the wide instance up
+    to ``MAX_WIDE_LAYERS``, the deep one above)."""
+    if num_layers < 1:
+        raise ValueError(f"num_layers must be >= 1, got {num_layers}")
     for n in LAYER_INSTANCES:
         if n >= num_layers:
             return n
-    if num_layers <= MAX_LAYERS:
-        return num_layers
-    raise ValueError(
-        f"num_layers={num_layers} exceeds the peel kernel's largest slot "
-        f"count MAX_LAYERS={MAX_LAYERS} (csrc/peel.cu keeps the slots of a "
-        "tile's 256 pixels in shared memory); the CPU path takes any count")
+    return num_layers
 
 
 def wide_occupancy(num_layers: int) -> dict:
     """The wide instance's resources at ``num_layers`` slots (17 ..
-    ``MAX_LAYERS``): registers, static and dynamic shared memory, local
+    ``MAX_WIDE_LAYERS``): registers, static and dynamic shared memory, local
     (spill) bytes and resident 128-thread blocks (half tiles) per SM."""
     return _kernels.PEEL.occupancy("peel_wide_occupancy", num_layers)
+
+
+def deep_occupancy() -> dict:
+    """The deep instance's resources (the same at every slot count: its
+    slots live in global memory), in the keys of :func:`wide_occupancy`."""
+    return _kernels.PEEL.occupancy("peel_deep_occupancy")
 
 
 def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
@@ -324,11 +331,10 @@ def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
         layers and 0 counts.
     Returns (layers (B, H, W, L) int32 face ids, -1 padded, counts
     (B, H, W) int32). CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/peel.cu`` (num_layers up to ``MAX_LAYERS``).
+    launch ``csrc/peel.cu`` (any num_layers >= 1).
     """
     num_layers = int(num_layers)
-    if num_layers < 1:
-        raise ValueError(f"num_layers must be >= 1, got {num_layers}")
+    inst = peel_instance(num_layers)
     f = faces.shape[0]
     if f == 0:
         raise ValueError("peel_layers needs at least one face")
@@ -337,7 +343,6 @@ def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
         return peel_layers_plain(entry_bf, faces, verts, faces_existence,
                                  tile_starts, tile_counts, ray_o_cam, ray_d,
                                  width, height, num_layers, tiles)
-    inst = peel_instance(num_layers)
     b, h, w, _ = ray_d.shape
     if (h, w) != (height, width):
         raise ValueError(f"ray_d is {h}x{w}, frame is {height}x{width}")
@@ -368,14 +373,27 @@ def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
         counts = torch.zeros((b, h, w), dtype=i32, device=dev)
     if n_blocks == 0:
         return layers, counts
-    lib = _kernels.PEEL.load()
     P = ctypes.c_void_p
+    tile_ptr = P(None if tiles is None else tiles.data_ptr())
     with torch.cuda.device(dev):
-        err = lib.peel_launch(
+        if inst > MAX_WIDE_LAYERS:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            grid = min(2 * n_blocks, DEEP_BLOCKS_PER_SM * sms)
+            scratch = torch.empty((grid, 4, inst, 128), dtype=f32, device=dev)
+            err = _kernels.PEEL_DEEP.load()(
+                P(entry_bf.data_ptr()), r, P(faces.data_ptr()), P(verts.data_ptr()),
+                P(faces_existence.data_ptr()), f, P(tile_starts.data_ptr()),
+                P(tile_counts.data_ptr()), tile_ptr, n_blocks,
+                P(ray_o_cam.data_ptr()), P(ray_d.data_ptr()), h, w, gx, gy, inst,
+                P(layers.data_ptr()), P(counts.data_ptr()), P(scratch.data_ptr()),
+                grid, _kernels.current_stream(dev),
+            )
+            _kernels.PEEL_DEEP.launched(err)
+            return layers, counts
+        err = _kernels.PEEL.load().peel_launch(
             P(entry_bf.data_ptr()), r, P(faces.data_ptr()), P(verts.data_ptr()),
             P(faces_existence.data_ptr()), f, P(tile_starts.data_ptr()),
-            P(tile_counts.data_ptr()),
-            P(None if tiles is None else tiles.data_ptr()), n_blocks,
+            P(tile_counts.data_ptr()), tile_ptr, n_blocks,
             P(ray_o_cam.data_ptr()), P(ray_d.data_ptr()), h, w, gx, gy, inst,
             num_layers, P(layers.data_ptr()), P(counts.data_ptr()),
             _kernels.current_stream(dev),

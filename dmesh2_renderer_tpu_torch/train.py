@@ -2,7 +2,8 @@
 
 Port of ``dmesh2_renderer_tpu/train.py``: the multi-view train step of
 ``parallel/data_parallel.py`` (views split over the ranks, shared scene
-gradients averaged) with parameter state, capacity warnings, periodic
+gradients averaged), or on a mesh with an ``"sp"`` axis the view x band
+grid step of ``parallel/patch_parallel.py``, with parameter state, capacity warnings, periodic
 checkpointing and resume. ``torch.optim`` takes the place of optax: the
 ``optimizer`` argument builds a ``torch.optim.Optimizer`` from the parameter
 list, and that optimizer is the train state's ``opt_state``.
@@ -23,11 +24,12 @@ import numpy as np
 import torch
 
 from dmesh2_renderer_tpu_torch.parallel.data_parallel import (
+    RankMesh,
     RenderStats,
     SceneParams,
-    ViewMesh,
     make_sharded_train_step,
 )
+from dmesh2_renderer_tpu_torch.parallel.patch_parallel import make_grid_train_step
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
 
 
@@ -157,24 +159,25 @@ class Trainer:
     """Multi-view inverse-rendering trainer (the JAX package's
     ``BASELINE.json`` config 5, the 64-view optimization loop).
 
-    Wraps the view-parallel train step with parameter state, capacity
-    warnings, periodic checkpointing (by rank 0) and resume. ``mesh`` is a
-    :class:`~dmesh2_renderer_tpu_torch.parallel.ViewMesh`; ``optimizer``
-    builds a ``torch.optim.Optimizer`` from the parameter list.
+    Wraps the train step with parameter state, capacity warnings, periodic
+    checkpointing (by rank 0) and resume. ``mesh`` is a
+    :class:`~dmesh2_renderer_tpu_torch.parallel.RankMesh`: with an ``"sp"``
+    axis (a 2-D ``("dp", "sp")`` mesh, or a 1-D pixel mesh) the step is
+    ``make_grid_train_step``, which also shards each view's pixel rows,
+    else the view-parallel ``make_sharded_train_step``; both take the same
+    arguments. ``optimizer`` builds a ``torch.optim.Optimizer`` from the
+    parameter list.
     """
 
-    def __init__(self, mesh: ViewMesh, optimizer, faces, width, height,
+    def __init__(self, mesh: RankMesh, optimizer, faces, width, height,
                  aa_temperature=1.0, config: RasterConfig | None = None,
                  checkpoint_path: str | None = None,
                  checkpoint_every: int = 100):
-        if "sp" in getattr(mesh, "axis_names", ()):
-            raise NotImplementedError(
-                "a 2-D (view x pixel-band) mesh is not ported yet: it comes "
-                "with the port of parallel/patch_parallel.py; use a 1-D view "
-                "mesh (make_view_mesh)")
         self.mesh = mesh
         self.config = config or RasterConfig()
-        self.step_fn = make_sharded_train_step(
+        make_step = (make_grid_train_step if "sp" in mesh.axis_names
+                     else make_sharded_train_step)
+        self.step_fn = make_step(
             mesh, optimizer, faces, width, height, aa_temperature, self.config)
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every

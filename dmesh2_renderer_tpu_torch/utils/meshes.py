@@ -66,6 +66,31 @@ def triangle_soup(n_faces: int, seed: int = 0, extent: float = 1.0, size: float 
     return verts, faces
 
 
+def sheet_stack(n_sheets: int = 150, duplicates=(20, 62, 125),
+                half_size: float = 3.0, z_near: float = 1.0, z_far: float = -1.0):
+    """A depth-peel stress scene: ``n_sheets`` parallel quads facing +z
+    (each two triangles), sheet i at z = z_near + i (z_far - z_near) /
+    (n_sheets - 1), listed nearest first for a camera on the +z axis. Each
+    sheet in ``duplicates`` is listed twice: its two triangles again right
+    after it, on the same vertex ids, so a ray hits both copies at
+    bit-identical t. A ray from (0, 0, 3) within 30 degrees of -z crosses
+    every sheet. With the default duplicates, listed in id order the copies
+    of sheet 62 sit at entries 126-129 and those of sheet 125 at 254-257:
+    across the 128-entry blocks of the peel. Returns (verts (4 n, 3) f32,
+    faces (F, 3) int32)."""
+    z = z_near + np.arange(n_sheets) * (z_far - z_near) / (n_sheets - 1)
+    # A lopsided square: its diagonal passes through no pixel centre of a
+    # camera on the z axis, whose rays would hit both triangles at t equal
+    # only up to the operation order.
+    corners = np.array([[-1.0, -0.9], [1.03, -0.9], [1.03, 0.97], [-1.0, 0.97]]) * half_size
+    verts = np.concatenate([np.column_stack([corners, np.full(4, zi)]) for zi in z])
+    faces = []
+    for i in range(n_sheets):
+        quad = [[4 * i, 4 * i + 1, 4 * i + 2], [4 * i, 4 * i + 2, 4 * i + 3]]
+        faces += quad * (2 if i in duplicates else 1)
+    return verts.astype(np.float32), np.asarray(faces, np.int32)
+
+
 def look_at(eye, center=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0)):
     """Right-handed look-at model-view matrix (camera looks down -z)."""
     eye = np.asarray(eye, dtype=np.float64)

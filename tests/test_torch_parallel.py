@@ -10,9 +10,6 @@ test workers never share a port. The JAX side runs in this process.
 
 import dataclasses
 import functools
-import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -31,9 +28,7 @@ from dmesh2_renderer_tpu_torch.parallel import (
 from dmesh2_renderer_tpu_torch.train import Trainer
 from tests import _torch_dist_worker as W
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
-JOIN_TIMEOUT_S = 240
 # tests/test_torch_grad_api.py:38: verts gradients 5e-4, the rest 2e-5.
 VERTS_TOL, TOL = 5e-4, 2e-5
 
@@ -41,25 +36,7 @@ VERTS_TOL, TOL = 5e-4, 2e-5
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Run the two gloo ranks once; returns their outputs as dicts."""
-    out = tmp_path_factory.mktemp("ranks")
-    init = out / "rendezvous"
-    env = dict(os.environ, OMP_NUM_THREADS="2")
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "tests._torch_dist_worker", str(r), str(WORLD),
-         str(init), str(out)], cwd=REPO, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=JOIN_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log}"
-    return [dict(np.load(out / f"rank{r}.npz")) for r in range(WORLD)]
+    return W.run_ranks(tmp_path_factory.mktemp("ranks"), "view", WORLD)
 
 
 def _mesh1():

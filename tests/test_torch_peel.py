@@ -285,15 +285,15 @@ def test_displaced_slot_passes_its_ties_as_in_jax(num_layers):
 
 def test_num_layers_outside_the_kernel_instances_raises():
     """The kernel's register instances have 1, 2, 4, 8 and 16 slots; a call
-    asks for the smallest that covers it. Above 16 the wide instance runs
-    with exactly L slots, up to MAX_LAYERS; above that it raises, naming the
-    limit (the CPU path takes any count)."""
+    asks for the smallest that covers it. Above 16 a call runs with exactly
+    L slots: the wide instance up to MAX_WIDE_LAYERS, the deep one above, so
+    every L >= 1 has an instance; only L < 1 raises, on the CPU too."""
     assert [TP.peel_instance(n) for n in (1, 2, 3, 5, 8, 9, 16)] == \
         [1, 2, 4, 8, 8, 16, 16]
-    assert [TP.peel_instance(n) for n in (17, 32, 64, TP.MAX_LAYERS)] == \
-        [17, 32, 64, TP.MAX_LAYERS]
-    with pytest.raises(ValueError, match=f"largest slot count MAX_LAYERS={TP.MAX_LAYERS}"):
-        TP.peel_instance(TP.MAX_LAYERS + 1)
+    assert [TP.peel_instance(n) for n in (17, 96, 97, 200)] == [17, 96, 97, 200]
+    assert TP.MAX_WIDE_LAYERS == 96
+    with pytest.raises(ValueError, match="num_layers must be >= 1"):
+        TP.peel_instance(0)
     a, _ = _binned_scene()
     with pytest.raises(ValueError, match="num_layers"):
         TP.peel_layers(*_port_args(a), 0)
@@ -301,12 +301,16 @@ def test_num_layers_outside_the_kernel_instances_raises():
 
 def test_wide_instance_counts_its_launches_apart():
     """peel.cu's wide instance has a launch count of its own, beside the
-    register instances' (both launched through one C function); a failed
-    launch raises under its own name."""
+    register instances' (both launched through one C function), as has its
+    deep instance (through a C function of its own); a failed launch raises
+    under its own name."""
     from dmesh2_renderer_tpu_torch.ops import _kernels
 
     assert _kernels.PEEL_WIDE.source == _kernels.PEEL.source
-    assert _kernels.COUNTED == _kernels.KERNELS + (_kernels.PEEL_WIDE,)
+    assert _kernels.PEEL_DEEP.source == _kernels.PEEL.source
+    assert _kernels.PEEL_DEEP.launch == "peel_deep_launch"
+    assert _kernels.COUNTED == _kernels.KERNELS + (_kernels.PEEL_WIDE,
+                                                   _kernels.PEEL_DEEP)
     before = (_kernels.PEEL.launches, _kernels.PEEL_WIDE.launches)
     _kernels.PEEL_WIDE.launched(0)
     assert (_kernels.PEEL.launches, _kernels.PEEL_WIDE.launches) == \
@@ -481,15 +485,16 @@ def _numpy_work_counts(a, num_layers):
     return _numpy_peel(a, num_layers)[0]
 
 
-def _numpy_peel(a, num_layers):
+def _numpy_peel(a, num_layers, frame=(W, H)):
     """The peel in numpy and Python, independent of both packages' code:
     float32 arithmetic in the kernel's order, each pixel's slots kept by a
     Python merge of each 128-entry block's hits (its distinct t, the larger
     id on a tie, each carried into the slots by the JAX kernel's swap rule,
     under which a displaced slot passes the slots equal to it). Returns (work
     counts as in :func:`_numpy_work_counts`, layers (B, H, W, L), counts
-    (B, H, W))."""
+    (B, H, W)) of the ``frame`` (width, height)."""
     f32 = np.float32
+    W, H = frame
     faces, verts, exist = a["faces"], a["verts"], a["exist"]
     starts, counts, entry = a["starts"], a["counts"], a["entry_bf"]
     gx, gy = -(-W // 16), -(-H // 16)
@@ -581,3 +586,59 @@ def test_plain_peel_work_counts_match_numpy(inside, num_layers):
     want = _numpy_work_counts(a, num_layers)
     assert {k: int(work[k]) for k in want} == want
     assert want["skipped"] > 0 and want["gated"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Above MAX_WIDE_LAYERS: the sheet stack, more than 128 hits on every ray.
+
+@functools.lru_cache(maxsize=1)
+def _sheet_stack():
+    """utils/meshes.sheet_stack (150 sheets; sheets 20, 62 and 125 listed
+    twice) on one 16x16 tile, its 306 faces listed nearest first in id
+    order, seen from (0, 0, 3) down -z with a 60 degree field of view: 153
+    distinct hits on every ray. Returns (numpy arrays, the JAX peel at 16
+    layers)."""
+    verts, faces = TM.sheet_stack()
+    f = faces.shape[0]
+    entry_bf = np.full(384, f, np.int32)
+    entry_bf[:f] = np.arange(f)
+    mv = JM.look_at((0.0, 0.0, 3.0), (0.0, 0.0, 0.0))[None]
+    proj = JM.perspective(60.0, 1.0)[None]
+    ray_o, ray_d = JG.init_rays(jnp.asarray(mv), jnp.asarray(proj), 16, 16)
+    a = dict(entry_bf=entry_bf, verts=verts, faces=faces,
+             exist=np.ones(f, np.int32), starts=np.array([0], np.int32),
+             counts=np.array([f], np.int32), ray_o=np.array(ray_o[:, 0, 0, :]),
+             ray_d=np.array(ray_d))
+    stream = JP.pack_peel_stream(*(jnp.asarray(a[k]) for k in (
+        "entry_bf", "verts", "faces", "exist")))
+    want = JP.peel_layers(stream, jnp.asarray(a["starts"]), jnp.asarray(a["counts"]),
+                          jnp.asarray(a["ray_o"]), jnp.asarray(a["ray_d"]), 16, 16,
+                          16, interpret=True)
+    return a, (np.asarray(want[0]), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("num_layers", [100, 128])
+def test_plain_peel_beyond_96_layers_on_a_sheet_stack(num_layers):
+    """The plain peel at L = 100 and 128 (the deep instance's range on the
+    card) equals the numpy merge of the JAX rule on every pixel and, in its
+    first 16 layers, the JAX kernel at 16 (the prefix property); counts
+    reach L. Exact ties across blocks keep both copies, the earlier
+    block's first (sheet 62: entries 126-127 and 128-129); a tie inside a
+    block keeps one, the larger id (sheet 20: entries 40-43)."""
+    a, (want_l16, want_c16) = _sheet_stack()
+    _, np_l, np_c = _numpy_peel(a, num_layers, frame=(16, 16))
+    args = (*(torch.as_tensor(a[k]) for k in (
+        "entry_bf", "faces", "verts", "exist", "starts", "counts", "ray_o",
+        "ray_d")), 16, 16)
+    layers, counts = TP.peel_layers(*args, num_layers)
+    np.testing.assert_array_equal(to_numpy(layers), np_l)
+    np.testing.assert_array_equal(to_numpy(counts), np_c)
+    np.testing.assert_array_equal(to_numpy(layers)[..., :16], want_l16)
+    np.testing.assert_array_equal(np.minimum(to_numpy(counts), 16), want_c16)
+    assert (np_c == num_layers).all()
+    # pixel (3, 11) lies off both quad diagonals: one triangle per sheet
+    sheet = a["faces"][np_l[0, 3, 11], 0] // 4
+    assert (np.diff(sheet) >= 0).all() and int((sheet == 62).sum()) == 2
+    assert int((sheet == 20).sum()) == 1
+    ids = np_l[0, 3, 11][sheet == 62]
+    assert ids[1] == ids[0] + 2 and ids[0] in (126, 127)

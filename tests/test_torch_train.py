@@ -1,8 +1,8 @@
 """The port's Trainer and checkpoints (train.py) on a world of one, on the
 scenes of tests/test_train.py: the loss falls, a checkpoint restores the
 parameters, the optimizer state and the step exactly, the capacity warnings
-reach the training loop with the port's wording, and a 2-D mesh is refused
-until the pixel-band route is ported."""
+reach the training loop with the port's wording, and a mesh with an "sp"
+axis takes the pixel-band grid step."""
 
 import dataclasses
 import functools
@@ -14,7 +14,8 @@ import torch
 
 from dmesh2_renderer_tpu.utils.meshes import icosphere, orbit_cameras
 from dmesh2_renderer_tpu_torch import RasterConfig, render
-from dmesh2_renderer_tpu_torch.parallel import RenderStats, SceneParams, make_view_mesh
+from dmesh2_renderer_tpu_torch.parallel import (
+    RenderStats, SceneParams, make_grid_train_step, make_mesh, make_view_mesh)
 from dmesh2_renderer_tpu_torch.train import (
     TrainState, Trainer, check_render_stats, load_checkpoint, save_checkpoint)
 
@@ -128,9 +129,27 @@ def test_check_render_stats_warns_on_truncation():
 
 
 def test_trainer_grid_mesh_step():
-    """A 2-D ("dp", "sp") mesh, the JAX Trainer's pixel-band route, is not
-    ported yet: the Trainer refuses it rather than train it as 1-D."""
-    params, faces, _ = _scene(2)
-    mesh = dataclasses.replace(make_view_mesh(device="cpu"), axis_names=("dp", "sp"))
-    with pytest.raises(NotImplementedError, match="patch_parallel"):
-        Trainer(mesh, ADAM, faces, 16, 16, 1.0, CFG)
+    """A mesh with an "sp" axis takes the JAX Trainer's route: the grid step
+    of parallel/patch_parallel.py (views over "dp", pixel bands over "sp").
+    On a (1, 1) ("dp", "sp") world of one it trains as the grid step does,
+    bit for bit, and the 1-D view mesh keeps the view-parallel step."""
+    params, faces, (it, mv, proj) = _scene(2)
+    hw = 16
+    tgt = np.zeros((2, hw, hw, 3), np.float32)
+    bg = np.zeros(3, np.float32)
+    grid = make_mesh((1, 1), ("dp", "sp"), device="cpu")
+    tr = Trainer(grid, ADAM, faces, hw, hw, 1.0, CFG)
+    assert tr.step_fn.__qualname__.startswith("make_grid_train_step")
+    assert Trainer(make_view_mesh(device="cpu"), ADAM, faces, hw, hw, 1.0,
+                   CFG).step_fn.__qualname__.startswith("make_sharded_train_step")
+    state = tr.init_state(params)
+    step = make_grid_train_step(grid, ADAM, faces, hw, hw, 1.0, CFG)
+    leaves = SceneParams(*(torch.tensor(p, requires_grad=True) for p in params))
+    opt = step.init(leaves)
+    for _ in range(2):
+        state, loss = tr.step(state, it, mv, proj, tgt, bg)
+        _, _, want, stats = step(leaves, opt, it, mv, proj, tgt, bg)
+        assert float(loss) == float(want)
+        assert [int(x) for x in tr.last_stats] == [int(x) for x in stats]
+    assert all(torch.equal(a, b) for a, b in zip(state.params, leaves))
+    assert int(state.step) == 2
