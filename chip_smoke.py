@@ -12,6 +12,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ptxas resource lines and each kernel's registers, shared memory, spill
    and resident blocks per SM (the peel's for its 8-slot instance, for its
    wide instance at 32 and 64 slots and for its deep instance).
+1b. The float32 rate calibration (``utils/fp32_rate.py``, the counterpart of
+   ``benchmarks/micro_vpu.py``): ``quad_map``'s uncontracted instance equal
+   to its plain version bit for bit on a seeded (512, 1024) block at L = 1,
+   64 and 2048; its contracted instance within 1 ulp of a - x^2 computed in
+   float64 and rounded once at L = 1; both inside [a - a^2, a] within 4 ulp
+   at L = 1, 64, 2048 and 16384. Then ``fp32_rate``, with the launch count
+   set to 0 just before and read just after (its launches are this path's):
+   both instances' float32 rates from the slope between L = 2048 and 16384
+   (neither may exceed 105% of the data-sheet 67e12) and launch overheads,
+   the SM clock read under load, the card's name and power limit; the
+   kernel's time at L = 2048 beside its bound and its plain version's.
 2. Hold each kernel against its plain PyTorch version on the card, on the
    inputs the entry points give it (recorded as they call the kernel
    wrappers): icosphere(3), 4 views at 512x512 through one ragged 376x312
@@ -150,15 +161,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``make_sharded_train_step`` on a world of one (loss within 1e-5
    relative, gradients within 1e-6 x max(|g|, 1)), and the kernels of its
    last body (32 views, rows 128-255) against their plain versions.
+6i. The port's fitting example (``python -m
+   dmesh2_renderer_tpu_torch.examples.fit_mesh``) at its defaults (128x128,
+   16 views) for 60 steps with a temporary checkpoint: the three renderer
+   kernels launch, the loss falls, nothing is truncated, ms per step; run
+   again for 10 steps it starts at step 60, its first two losses agree
+   within 1e-5 relative with two steps continued in-process from the first
+   run's state (the second after an Adam update from the restored
+   moments), its Adam step count goes on from 60, and the kernels of its
+   last step are held against their plain versions at the example's
+   inputs and tile budget.
 7. The card's busy time in the 1080p forward and training step and in the
    4-slab and 4-band forwards: the union of the device intervals
    torch.profiler records, beside the wall time of the profiled calls.
 
+After the phases, each operation-bound kernel's time is printed beside
+its bound at the two measured float32 rates of phase 1b
+(``bound_ms_uncontracted``, ``bound_ms_contracted``).
+
 The next-to-last lines are the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` summed over the main-path runs: the 1080p training
 step, the layered generate, the sharded peels, the Trainer's warm-up
-steps, the slab forward and training step, the band forwards and the grid
-Trainer's warm-up steps; ``peel`` is the register instances, 1 to 16
+steps, the slab forward and training step, the band forwards, the grid
+Trainer's warm-up steps and the fitting example's first run; ``quad_map``'s
+from the calibration, timed at L = 2048 uncontracted; ``peel`` is the register instances, 1 to 16
 slots, timed at 8, ``peel_wide`` the wide instance, timed at 32, whose
 ``plain_ms`` is taken on the sampled tiles named in ``plain_tiles``, beside
 the kernel's ``ms_plain_tiles`` there, and ``peel_deep`` the deep
@@ -177,7 +203,6 @@ import dataclasses
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -197,6 +222,7 @@ REPLACES = {
     "peel": "dmesh2_renderer_tpu/ops/peel.py:84",
     "peel_wide": "dmesh2_renderer_tpu/ops/peel.py:84",
     "peel_deep": "dmesh2_renderer_tpu/ops/peel.py:84",
+    "quad_map": "benchmarks/micro_vpu.py:34",
 }
 # The kernels of each main path: the training step (and the sharded ones),
 # a forward, the layered peel at 8 layers (the register instances) and the
@@ -206,6 +232,7 @@ FORWARD_KERNELS = ("pack_stream", "composite_fwd")
 LAYERED_KERNELS = ("peel",)
 SHARDED_KERNELS = ("peel_wide",)
 DEEP_KERNELS = ("peel_deep",)
+CALIBRATION_KERNELS = ("quad_map",)
 
 # composite_bwd vs its plain version, per gradient-record column, times
 # max(|column|, 1): the kernel's block sums and the plain version's
@@ -316,13 +343,20 @@ class Sizes:
     slab_tie_share: float = 0.02
     band_tie_share: float = 0.05
     tie_departure_max: float = 0.5
+    # Phase 1b: the float32 rate calibration's kernel against its plain
+    # version at these iteration counts (the largest is fp32_rate's L_LO).
+    quad_map_iters: tuple = (1, 64, 2048)
+    # Phase 6i: the fitting example at its defaults for fit_steps steps,
+    # then resumed for fit_resume_steps.
+    fit_steps: int = 60
+    fit_resume_steps: int = 10
 
 
 def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as nvidia-smi prints them."""
+    from dmesh2_renderer_tpu_torch.utils.fp32_rate import nvidia_smi
+
+    return ", ".join(nvidia_smi("name,power.limit", torch.cuda.current_device()))
 
 
 def sync():
@@ -2325,6 +2359,166 @@ def phase_grid_trainer(dev, sz: Sizes, report, kernels, card):
                 grid_trainer_losses=losses, grid_2x2_loss_rel_err=rel)
 
 
+def float32_ulp(x):
+    """The float32 spacing at each |x| (x a float32 tensor)."""
+    ax = x.abs()
+    return torch.nextafter(ax, torch.full_like(ax, float("inf"))) - ax
+
+
+def phase_calibration(dev, sz: Sizes, report, kernels, card):
+    """1b: the float32 rate calibration (utils/fp32_rate.py). The
+    uncontracted quad_map against its plain version bit for bit, the
+    contracted one at L = 1 against a - x^2 in float64 rounded once and at
+    every L against the interval [a - a^2, a]; then fp32_rate, whose
+    launches are the path's, its rates against the data-sheet peak, and the
+    kernel's time beside its bound and its plain version's."""
+    from dmesh2_renderer_tpu_torch.utils import fp32_rate as FR
+
+    print(f"phase 1b: float32 rate calibration, quad_map on a {FR.SHAPE} block")
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(-1.0, 1.6, size=FR.SHAPE).astype(np.float32),
+                        device=dev)
+    a = x * 1e-7 + 1.62
+    a64 = a.double()
+    for iters in sz.quad_map_iters:
+        got, want = FR.quad_map(x, iters), FR.quad_map_plain(x, iters)
+        sync()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = float((got - want).abs().max())
+        print(f"  uncontracted L={iters}: identical bits to the plain version {same} "
+              f"(max|err| {err:.3g})")
+        if not same:
+            raise AssertionError(f"quad_map differs from its plain version at L={iters}")
+    one = FR.quad_map(x, 1, contract=True)
+    exact = (a64 - x.double() ** 2).float()
+    ulps = float(((one - exact).abs() / float32_ulp(exact)).max())
+    print(f"  contracted L=1: within {ulps:g} ulp of a - x^2 in float64 rounded once")
+    if ulps > 1.0:
+        raise AssertionError(f"contracted quad_map at L=1 is {ulps} ulp off")
+    slack = 4 * 2.0 ** -23                     # 4 ulp of [1, 2)
+    for iters in sz.quad_map_iters + (FR.L_HI,):
+        for contract in (False, True):
+            y = FR.quad_map(x, iters, contract).double()
+            inside = bool(((y <= a64 + slack) & (y >= a64 - a64 * a64 - slack)).all())
+            if not inside:
+                raise AssertionError(f"quad_map (contract={contract}) left "
+                                     f"[a - a^2, a] at L={iters}")
+    print(f"  both instances stay in [a - a^2, a] within 4 ulp at L = "
+          f"{sz.quad_map_iters + (FR.L_HI,)}")
+
+    reset_launches(kernels)
+    rate = FR.fp32_rate(dev)
+    launches = read_launches(kernels)
+    record_launches(report, launches, CALIBRATION_KERNELS, "calibration")
+    clock = rate["clock"]
+    print(f"  fp32_rate on {rate['card']}, power limit {rate['power_limit']}; SM clock "
+          f"{clock['sm_clock']} (max {clock['max_sm_clock']}, power draw "
+          f"{clock['power_draw']}, read under load: {clock['under_load']})")
+    for name in ("uncontracted", "contracted"):
+        r = rate[name]
+        print(f"  {name}: L={FR.L_LO} {r['ms_lo']:.4f} ms, L={FR.L_HI} {r['ms_hi']:.4f} ms "
+              f"per launch -> {r['ops_per_s'] / 1e12:.3f}e12 float32 ops/s "
+              f"({r['ops_per_s'] / FP32_OPS_PER_S:.1%} of {FP32_OPS_PER_S:.3g}), "
+              f"launch overhead {r['overhead_us']:.2f} us")
+        if not 0.0 < r["ops_per_s"] <= 1.05 * FP32_OPS_PER_S:
+            raise AssertionError(f"{name} rate {r['ops_per_s']} is not a rate: above "
+                                 "105% of the data-sheet peak, the count or the "
+                                 "timing is wrong")
+    print(f"  the uncontracted map over {FR.LOAD_LAUNCHES} launches of "
+          f"{FR.LOAD_ITERS} iterations (the clock's load): "
+          f"{clock['load_ops_per_s'] / 1e12:.3f}e12 ops/s")
+
+    n = x.numel()
+    plain_ms, _ = time_ms(lambda: FR.quad_map_plain(x, FR.L_LO), reps=3)
+    ops = FR.OPS_PER_ITER * n * FR.L_LO + 2 * n            # the map, then a
+    nbytes = 2 * 4 * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    bound, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    ms = rate["uncontracted"]["ms_lo"]
+    report["quad_map"].update(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=None,
+        iters=FR.L_LO, ms_contracted=rate["contracted"]["ms_lo"],
+        ops_per_s_uncontracted=rate["uncontracted"]["ops_per_s"],
+        ops_per_s_contracted=rate["contracted"]["ops_per_s"],
+        sm_clock=clock["sm_clock"])
+    print(f"  quad_map at L={FR.L_LO}: {ms:.4f} ms (contracted "
+          f"{rate['contracted']['ms_lo']:.4f}), bound {bound:.4f} ms ({bound_by}: "
+          f"{ops:.4g} ops, {nbytes} bytes), plain {plain_ms:.3f} ms, on {card}")
+    return dict(fp32_rate=rate, quad_map_plain_ms=plain_ms)
+
+
+def phase_fit_mesh(dev, sz: Sizes, report, kernels, card):
+    """6i: the port's fitting example (examples/fit_mesh.py) at its defaults
+    for sz.fit_steps steps with a temporary checkpoint: the three renderer
+    kernels launch, the loss falls, nothing is truncated; resumed for
+    sz.fit_resume_steps steps it starts where the first run stopped, its
+    first two losses agree with two steps continued in-process from the
+    same state (the second one after an Adam update, so it sees the
+    restored moments) and its Adam step count goes on from the first run's.
+    The kernels' outputs of the resumed run's last step are held against
+    their plain versions at the example's inputs and tile budget."""
+    import tempfile
+
+    from dmesh2_renderer_tpu_torch.examples import fit_mesh
+    from dmesh2_renderer_tpu_torch.utils.autotune import scene_binning_stats
+    from dmesh2_renderer_tpu_torch.utils.meshes import icosphere
+
+    print(f"phase 6i: examples/fit_mesh.py at its defaults, {sz.fit_steps} steps, "
+          f"then resumed for {sz.fit_resume_steps}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "fit_mesh.npz")
+        reset_launches(kernels)
+        fit = fit_mesh.main(["--steps", str(sz.fit_steps), "--checkpoint", ckpt])
+        launches = read_launches(kernels)
+        record_launches(report, launches, TRAINING_KERNELS, "fitting example")
+        losses = [float(v) for v in fit.losses]
+        stats = [int(v) for v in fit.trainer.last_stats]
+        print(f"  launches {launches}; stats (truncated, grad contributing) {stats}; "
+              f"loss {losses[0]:.6g} -> {losses[-1]:.6g}; {fit.ms_per_step:.3f} ms "
+              f"per step (host clock to the last loss readback) on {card}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"the example's loss did not fall: {losses}")
+        if stats[0] != 0:
+            raise AssertionError(f"the example truncated {stats[0]} face instances")
+        _, mv, proj, target, _ = fit.batch
+        h, w = target.shape[1:3]
+        hist = scene_binning_stats(fit.state.params.verts.detach(), icosphere(3)[1], mv,
+                                   proj, w, h, device=dev)["tiles_hist"]
+        print(f"  per-face tile budget {fit.trainer.config.max_tiles_per_face}: at step "
+              f"{sz.fit_steps} the largest face covers {int(hist.max())} tiles, "
+              f"{int((hist > 4).sum())} of {hist.size} (view, face) pairs more than 4")
+        state, cont = fit.state, []
+        for _ in range(2):
+            state, loss = fit.trainer.step(state, *fit.batch)
+            cont.append(float(loss))
+        with captured_kernel_calls(copy=True) as calls:
+            second = fit_mesh.main(["--steps", str(sz.fit_resume_steps),
+                                    "--checkpoint", ckpt])
+    label = f"fitting example {len(target)}x{h}x{w}"
+    check_kernels(calls, label, report)
+    check_backward(calls, label, report)
+    del calls
+    start = int(second.state.step) - len(second.losses)
+    first = [float(v) for v in second.losses[:2]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(first, cont))
+    adam_steps = {int(v["step"]) for v in second.state.opt_state.state_dict()["state"].values()}
+    print(f"  resumed at step {start}: first two losses "
+          + ", ".join(f"{v:.9g}" for v in first) + "; continued in-process "
+          + ", ".join(f"{v:.9g}" for v in cont) + f" (relative {rel:.3g}); Adam "
+          f"step count {sorted(adam_steps)} after {len(second.losses)} steps; "
+          f"{second.ms_per_step:.3f} ms per step with the kernels' arguments "
+          "copied for the check")
+    if start != sz.fit_steps:
+        raise AssertionError(f"the resumed example started at step {start}")
+    if not rel <= 1e-5:
+        raise AssertionError(f"resumed losses {first} vs continued {cont}")
+    if adam_steps != {int(second.state.step)}:
+        raise AssertionError(f"the resumed Adam step count {adam_steps} does not go "
+                             f"on from step {start}")
+    return dict(fit_losses=losses, fit_ms_per_step=fit.ms_per_step,
+                fit_resume_rel=rel)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -2369,6 +2563,7 @@ def main() -> int:
         print(f"  [{label}: {phase_s[label]:.1f} s on the host clock]")
         return out
 
+    calibration = run("1b", phase_calibration, dev, sz, report, counted, card)
     run("2", phase_kernel_checks, dev, sz, report)
     run("2b", phase_layered_checks, dev, sz, report)
     run("2d", phase_peel_adversarial, dev, sz, report)
@@ -2401,9 +2596,24 @@ def main() -> int:
     band_forward, t = run("6g", phase_pixel_bands, dev, sz, report, counted, card)
     timings.update(t)
     timings.update(run("6h", phase_grid_trainer, dev, sz, report, counted, card))
+    timings.update(run("6i", phase_fit_mesh, dev, sz, report, counted, card))
     timings.update(run("7", phase_device_busy, sz, s, forward, {
         f"{sz.slabs}_slab_forward": slab_forward, f"{sz.bands}_band_forward": band_forward}))
-    timings.update(phase_s=phase_s)
+    timings.update(calibration, phase_s=phase_s)
+    # The operation-bound kernels against the card's measured ceilings: the
+    # uncontracted rate, as every port kernel is built, and the contracted.
+    print("operation bounds at the measured float32 rates (bound_ms is at "
+          f"{FP32_OPS_PER_S:.3g}):")
+    rate = calibration["fp32_rate"]
+    for entry in report.values():
+        if entry.get("bound_by") == "operations":
+            for name in ("uncontracted", "contracted"):
+                entry[f"bound_ms_{name}"] = (entry["bound_ms"] * FP32_OPS_PER_S
+                                             / rate[name]["ops_per_s"])
+            print(f"  {entry['name']}: {entry['ms']:.4f} ms; bound {entry['bound_ms']:.4f}"
+                  f" ms, at the uncontracted rate {entry['bound_ms_uncontracted']:.4f} ms"
+                  f" ({entry['ms'] / entry['bound_ms_uncontracted']:.2f}x), at the "
+                  f"contracted {entry['bound_ms_contracted']:.4f} ms")
 
     kernels_line = {"kernels": [report[k.name] for k in counted]}
     os.makedirs("chiprun_out", exist_ok=True)

@@ -183,6 +183,15 @@ PEEL = Kernel("peel", "peel.cu", [
 ], extra_flags=("-fmad=false",))
 
 
+# quad_map, the float32 rate calibration (utils/fp32_rate.py): one launch
+# function for both its instances, uncontracted and contracted (the
+# intrinsics fix each, whatever the flags; -fmad=false as for the others).
+QUAD_MAP = Kernel("quad_map", "quad_map.cu", [
+    P, L, I, I,           # x, n, iters, contract
+    P, P,                 # out, stream
+], extra_flags=("-fmad=false",))
+
+
 class Instance:
     """A second kernel of another :class:`Kernel`'s source, counted on its
     own. It is launched through the kernel's C launch function, or through
@@ -228,7 +237,7 @@ PEEL_DEEP = Instance("peel_deep", PEEL, "peel_deep_launch", [
     P,                    # stream
 ])
 
-KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD, PEEL)
+KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD, PEEL, QUAD_MAP)
 # Everything with a launch count: the built kernels and the peel's wide and
 # deep ones.
 COUNTED = KERNELS + (PEEL_WIDE, PEEL_DEEP)
