@@ -47,20 +47,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    eyes inside the grid (one on three grid planes, so faces there are
    edge-on and rays graze the planes beside them) and one outside eye on two
    grid planes looking along them, through a ragged 333x201 frame, at 1, 8,
-   16, 17, 32 and 64 layers (the last three run the wide instance; 38,208
-   pixels there have more than 16 layers), and at 16 and 17 (the largest
-   register instance and the smallest wide one, where the skip rule still
-   drops pairs) with the rays scaled by 2 (longer than the skip bound
-   assumes: those pixels skip nothing) and by 0.5. The plain version's counts of the pairs the
-   kernel's skip rule drops and of the hits its insertion gate keeps out
-   are printed. First a tie scene of three 128-entry blocks at 3, 16, 17
-   and 32 layers: its layers must be [257, 130, 5] (a tie across blocks,
-   then a displaced slot carried past its tie). Then, above 96 layers (the
-   deep instance), a stack of 150 sheets (utils/meshes.sheet_stack, three
+   16, 17, 32, 64, 97 and 128 layers (17 to 64 run the wide instance, 38,208
+   pixels there have more than 16 layers; 97 and 128 the deep one, whose
+   pixels past its shared-memory tiers are printed), and at 16 and 17 (the
+   largest register instance and the smallest wide one, where the skip rule
+   still drops pairs) with the rays scaled by 2 (longer than the skip bound
+   assumes: those pixels skip nothing) and by 0.5. The plain version's
+   counts of the pairs the kernel's skip rule drops and of the hits its
+   insertion gate keeps out are printed. First a tie scene of three
+   128-entry blocks at 3, 16, 17, 32 and 97 layers: its layers must be
+   [257, 130, 5] (a tie across blocks, then a displaced slot carried past
+   its tie). Then, above 96 layers (the deep instance): its branch-free
+   reciprocal must equal 1.0f / x on every float of its range (all 2^32 bit
+   patterns tried); a stack of 150 sheets (utils/meshes.sheet_stack, three
    listed twice: exact t ties, some across 128-entry blocks) seen head-on
    through 640x480 at 97 and 128 layers: every tile equal, counts = L on
-   every pixel, and 2,400 half-tile units, more than the deep instance's
-   persistent blocks, so each block loops over units.
+   every pixel (all past the slot tier), block lists past the list tier,
+   and 2,400 half-tile units, more than the deep instance's persistent
+   blocks, so each block loops over units; and the same with sheets of half
+   size 1.5, whose edges cross the frame, so that counts fall from L to 0
+   and warps hold pixels on both sides of the slot tier.
 2c. Both compositors against their plain versions on a synthetic stress
    scene (2 views x 1,000 small faces piled over a few tiles of a ragged
    72x40 window; bbox edges on pixel boundaries; entries no pixel blends
@@ -113,7 +119,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain version's times on the sampled tiles. Then the same at 128 layers
    (the deep instance must launch): its first 32 layers and counts equal
    the 32-layer peel's on every pixel, all 128 equal the plain version's on
-   the sampled tiles; its time beside the bound.
+   the sampled tiles; the shares of pixels whose counts pass 16, 32, 48, 64,
+   the slot tier and 96, the shares of (pixel, 128-entry block) lists
+   longer than 8, 16, the list tier, 32 and 48 (from the plain version's
+   histogram over every tile in phase 5), and the wide and the deep
+   instance at 96 and 97 layers on the same inputs (placement: shared
+   memory against the tiers); its time beside the bound, and its resources
+   (registers, static and dynamic shared memory, spill, blocks per SM, grid,
+   scratch bytes): it must not spill and must hold 2 blocks per SM. Last,
+   the deep instance built with the larger tiers of
+   ``Sizes.deep_tier_sweep`` (a copy of csrc/peel.cu under the build
+   directory), each equal to the package's kernel and timed on the same
+   inputs, with its resident blocks per SM.
 6c. ``train.Trainer`` at the JAX package's BASELINE.json config 5
    (icosphere(3), 64 orbit views at 256x256, Adam 1e-2, binning capacity
    2^20) on a world of one: 2 warm-up steps, then timed steps (CUDA events;
@@ -296,7 +313,7 @@ class Sizes:
     # planes lie at multiples of 2.4 / adv_res from -1.2, three views.
     adv_res: int = 12
     adv_frame: tuple = (333, 201)                   # width, height (ragged)
-    adv_layers: tuple = (1, 8, 16, 17, 32, 64)
+    adv_layers: tuple = (1, 8, 16, 17, 32, 64, 97, 128)
     adv_capacity: int = 1 << 21
     adv_ray_scales: tuple = (2.0, 0.5)
     adv_ray_layers: tuple = (16, 17)
@@ -308,6 +325,8 @@ class Sizes:
     # loop and reuse their scratch.
     deep_frame: tuple = (640, 480)                  # width, height
     deep_half_size: float = 5.0
+    # Sheets whose edges cross the frame: about 57 to 153 hits per ray.
+    deep_ring_half_size: float = 1.5
     deep_layers: tuple = (97, 128)
     deep_capacity: int = 1 << 19
     # Tiles the plain peel takes at once on the card: its time is mostly
@@ -317,6 +336,10 @@ class Sizes:
     # (the wide instance) and above 96 (the deep one).
     sharded_layers: int = 32
     sharded_deep_layers: int = 128
+    # ... and the deep instance built with these other (slot, list) tiers:
+    # the one that holds 95% of the headline's pixels (2 blocks per SM), and
+    # two between it and the package's.
+    deep_tier_sweep: tuple = ((80, 24), (48, 18), (32, 15))
     # Phase 6c: the Trainer at the JAX package's BASELINE.json config 5.
     trainer_subdiv: int = 3
     trainer_views: int = 64
@@ -1329,7 +1352,7 @@ def phase_peel_ties(dev, report):
     5 and 130 share a vertex triple (t = 2.8), a tie across blocks, so the
     later goes after the earlier; face 257 (t = 2.3, block 2) displaces 5,
     which is carried past 130, its tie. Layers [257, 130, 5] (a stable merge
-    would give [257, 5, 130]), by the kernel at 3, 16, 17 and 32 slots."""
+    would give [257, 5, 130]), by the kernel at 3, 16, 17, 32 and 97 slots."""
     from dmesh2_renderer_tpu_torch.ops.peel import peel_layers, peel_layers_plain
 
     f = 260
@@ -1347,7 +1370,7 @@ def phase_peel_ties(dev, report):
     args = [torch.as_tensor(x, device=dev) for x in (
         entry_bf, faces, verts, exist, np.array([0], np.int32),
         np.array([f], np.int32), np.array([[0.0, 0.0, 3.0]], np.float32), ray_d)]
-    for num_layers in (3, 16, 17, 32):
+    for num_layers in (3, 16, 17, 32, 97):
         out = peel_layers(*args, 16, 16, num_layers)
         got = out[0][0, 8, 8].tolist()
         compare_peel(out, peel_layers_plain(*args, 16, 16, num_layers),
@@ -1360,9 +1383,11 @@ def phase_peel_adversarial(dev, sz: Sizes, report):
     """The peel kernel against its plain version, every tile, on views that
     stress the skip rule: eyes inside the grid and on
     its planes (faces edge-on, grazing rays, faces across the camera plane),
-    a ragged frame, 1, 8 and 16 layers, and rays scaled off unit length."""
+    a ragged frame, ``sz.adv_layers`` layers (every instance: register, wide,
+    deep), and rays scaled off unit length."""
     from dmesh2_renderer_tpu_torch import LayeredRenderer, RasterConfig
-    from dmesh2_renderer_tpu_torch.ops.peel import peel_layers, peel_layers_plain
+    from dmesh2_renderer_tpu_torch.ops.peel import (
+        MAX_WIDE_LAYERS, peel_layers, peel_layers_plain)
     from dmesh2_renderer_tpu_torch.utils.meshes import look_at, perspective, tet_grid
 
     w, h = sz.adv_frame
@@ -1395,7 +1420,11 @@ def phase_peel_adversarial(dev, sz: Sizes, report):
         print(f"    binning num_rendered={int(lr.last_aux[0])} num_truncated="
               f"{int(lr.last_aux[1])}; pixels with a layer {int((counts > 0).sum())}, "
               f"with more than 16 {int((counts > 16).sum())}; plain version's work "
-              f"{({k: int(v) for k, v in work.items()})}")
+              f"{work_counts(work)}")
+        if num_layers > MAX_WIDE_LAYERS:
+            tiers, over, lists = deep_tier_use(counts, work, num_layers)
+            print(f"    deep instance, tiers {tiers}: {over} pixels past the slot tier, "
+                  f"{lists} block lists past the list tier")
         if int(counts.max()) < min(num_layers, 2):
             raise AssertionError("adversarial scene gives too few layers")
     # Rays off unit length, in the largest register instance and the wide one.
@@ -1428,52 +1457,106 @@ def tie_pairs_across_blocks(args, faces, duplicates):
     return n
 
 
+def deep_tier_use(counts, work, num_layers):
+    """The deep instance's tiers at ``num_layers`` and how far a peel's
+    pixels pass them: the pixels with more slots than the slot tier, and the
+    (pixel, 128-entry block) lists longer than the list tier (from the plain
+    version's ``block_hits``, ``work``). Returns (tiers, pixels, lists)."""
+    from dmesh2_renderer_tpu_torch.ops.peel import deep_tiers
+
+    tiers = deep_tiers(num_layers)
+    hits = torch.as_tensor(work["block_hits"])
+    return (tiers, int((counts > tiers["slot_tier"]).sum()),
+            int(hits[tiers["list_tier"] + 1:].sum()))
+
+
+def reciprocal_mismatches(dev) -> int:
+    """The floats on which the deep peel's branch-free reciprocal
+    (csrc/peel.cu, rcp_of_in_range) differs from 1.0f / x in any bit:
+    peel_rcp_check over every float32 bit pattern of its range."""
+    import ctypes
+
+    from dmesh2_renderer_tpu_torch.ops import _kernels
+
+    fn = _kernels.PEEL.load().peel_rcp_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    _kernels.PEEL.check(fn(ctypes.c_void_p(bad.data_ptr()), _kernels.current_stream(dev)),
+                        "peel_rcp_check")
+    return int(bad)
+
+
 def phase_peel_deep(dev, sz: Sizes, report):
     """The peel above 96 layers (the deep instance) against its plain
     version on every tile of the sheet stack, at ``sz.deep_layers``; every
-    ray has more hits than that, so counts reach L, exact t ties lie across
-    blocks, and the half tiles outnumber the persistent grid's blocks.
-    Returns the plain version's and the kernel's times on those inputs at
-    the largest L."""
+    ray has more hits than that, so counts reach L and pass the slot tier,
+    block lists pass the list tier, exact t ties lie across blocks, and the
+    half tiles outnumber the persistent grid's blocks. Then smaller sheets
+    (``sz.deep_ring_half_size``), whose edges cross the frame: counts fall
+    from L at the centre, and warps hold pixels on both sides of the slot
+    tier. Returns the plain version's and the kernel's times on the first
+    scene at the largest L."""
     from dmesh2_renderer_tpu_torch import LayeredRenderer, RasterConfig
-    from dmesh2_renderer_tpu_torch.ops.peel import (
-        DEEP_BLOCKS_PER_SM, peel_layers, peel_layers_plain)
+    from dmesh2_renderer_tpu_torch.ops.peel import deep_grid, peel_layers, peel_layers_plain
     from dmesh2_renderer_tpu_torch.utils.meshes import look_at, perspective, sheet_stack
 
     w, h = sz.deep_frame
     duplicates = (20, 62, 125)
-    verts, faces = sheet_stack(half_size=sz.deep_half_size, duplicates=duplicates)
-    f = faces.shape[0]
-    print(f"phase 2d (deep): peel kernel vs plain version on every tile, sheet "
-          f"stack ({f} faces: 150 sheets, {duplicates} listed twice), {w}x{h}, "
-          f"L in {sz.deep_layers}")
     mv = look_at((0.0, 0.0, 3.0), (0.0, 0.0, 0.0))[None]
     proj = perspective(60.0, w / h)[None]
     lr = LayeredRenderer(mv, proj, w, h, config=RasterConfig(
         binning_capacity=sz.deep_capacity, max_tiles_per_face=64, num_giant_faces=512))
-    scene = (verts, faces, np.zeros((1, 4), np.int32), np.full((f, 2), -1, np.int32),
-             np.zeros((1, 4), np.int32), np.ones(f, np.int32))
+    grid = deep_grid(dev.index)
+    # Exponent fields 0, 253, 254 and 255 of either sign are out of range.
+    in_range = (1 << 32) - 8 * (1 << 23)
+    bad = reciprocal_mismatches(dev)
+    print(f"phase 2d (deep): the deep instance's branch-free 1/det differs from "
+          f"1.0f / x on {bad} of the {in_range} floats of its range")
+    if bad:
+        raise AssertionError("the deep peel's reciprocal differs from 1.0f / x")
     out = {}
-    for num_layers in sz.deep_layers:
-        _, counts, (args, _) = peel_generate(lr, [0], scene, num_layers, "sheet stack",
-                                             report, sz)
-        crossing = tie_pairs_across_blocks(args, faces, duplicates)
-        units = 2 * args[4].shape[0]
-        grid = DEEP_BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
-        print(f"    binning num_rendered={int(lr.last_aux[0])} num_truncated="
-              f"{int(lr.last_aux[1])}; counts min {int(counts.min())} max "
-              f"{int(counts.max())}; tied pairs across 128-entry blocks {crossing}; "
-              f"{units} half-tile units over a persistent grid of {min(units, grid)} "
-              "blocks")
-        if int(counts.min()) != num_layers or crossing == 0 or units <= grid:
-            raise AssertionError(f"sheet stack at L={num_layers}: counts "
-                                 f"{int(counts.min())}-{int(counts.max())}, {crossing} "
-                                 f"tied pairs across blocks, {units} units, grid {grid}")
-    plain_ms, _ = timed_once(lambda: peel_layers_plain(*args, group=sz.plain_peel_group))
-    ms, _ = time_ms(lambda: peel_layers(*args), sz.reps)
-    print(f"    at L={sz.deep_layers[-1]}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    out.update(plain_ms=plain_ms, ms=ms,
-               inputs=f"sheet stack {w}x{h}, L={sz.deep_layers[-1]}, every tile")
+    for half_size in (sz.deep_half_size, sz.deep_ring_half_size):
+        verts, faces = sheet_stack(half_size=half_size, duplicates=duplicates)
+        f = faces.shape[0]
+        ring = half_size != sz.deep_half_size
+        print(f"phase 2d (deep): peel kernel vs plain version on every tile, sheet "
+              f"stack ({f} faces: 150 sheets of half size {half_size}, {duplicates} "
+              f"listed twice), {w}x{h}, L in {sz.deep_layers}")
+        scene = (verts, faces, np.zeros((1, 4), np.int32), np.full((f, 2), -1, np.int32),
+                 np.zeros((1, 4), np.int32), np.ones(f, np.int32))
+        for num_layers in sz.deep_layers:
+            work = {}
+            _, counts, (args, _) = peel_generate(lr, [0], scene, num_layers,
+                                                 "sheet stack", report, sz, work=work)
+            crossing = tie_pairs_across_blocks(args, faces, duplicates)
+            units = 2 * args[4].shape[0]
+            tiers, over, lists = deep_tier_use(counts, work, num_layers)
+            # warps: two tile rows of 16 pixels (the frame is a multiple of 16)
+            warps = (counts > tiers["slot_tier"]).reshape(h // 2, 2, w // 16, 16)
+            mixed = int((warps.any(3).any(1) & ~warps.all(3).all(1)).sum())
+            print(f"    binning num_rendered={int(lr.last_aux[0])} num_truncated="
+                  f"{int(lr.last_aux[1])}; counts min {int(counts.min())} max "
+                  f"{int(counts.max())}; tied pairs across 128-entry blocks {crossing}; "
+                  f"{units} half-tile units over a persistent grid of "
+                  f"{min(units, grid)} blocks; tiers {tiers}: {over} pixels past the "
+                  f"slot tier, {mixed} warps on both sides of it, {lists} block lists "
+                  "past the list tier")
+            if ((int(counts.min()) != num_layers and not ring) or crossing == 0
+                    or units <= grid or over == 0 or lists == 0 or (ring and mixed == 0)):
+                raise AssertionError(
+                    f"sheet stack at L={num_layers}: counts {int(counts.min())}-"
+                    f"{int(counts.max())}, {crossing} tied pairs across blocks, {units} "
+                    f"units, grid {grid}, {over} pixels and {lists} lists past the "
+                    f"tiers, {mixed} warps on both sides")
+        if not ring:
+            plain_ms, _ = timed_once(lambda: peel_layers_plain(
+                *args, group=sz.plain_peel_group))
+            ms, _ = time_ms(lambda: peel_layers(*args), sz.reps)
+            print(f"    at L={sz.deep_layers[-1]}: kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms")
+            out.update(plain_ms=plain_ms, ms=ms,
+                       inputs=f"sheet stack {w}x{h}, L={sz.deep_layers[-1]}, every tile")
     return out
 
 
@@ -1581,6 +1664,11 @@ def phase_layered_main(dev, sz: Sizes, report, kernels):
     return lr, scene_t, idx, peel_call, tiles, mask, work
 
 
+def work_counts(work):
+    """The plain peel's scalar work counts (``work`` less its histogram)."""
+    return {k: int(v) for k, v in work.items() if k != "block_hits"}
+
+
 def peel_bound(args, work):
     """Least time for the peel of these inputs (``work`` from the plain
     version): entry_bf of every walked entry, the face tables, the tile
@@ -1598,7 +1686,7 @@ def peel_bound(args, work):
         OPS_PER_SKIPPED_PAIR)
 
     _, faces, verts, exist, starts, counts, ray_o, ray_d, _, _, n_layers = args
-    w = {k: int(v) for k, v in work.items()}
+    w = work_counts(work)
     n_pix = ray_d.numel() // 3
     nbytes = (int(counts.sum()) * 4 + faces.numel() * 4 + verts.numel() * 4
               + exist.numel() * 4 + (starts.numel() + counts.numel()) * 4
@@ -1677,6 +1765,7 @@ def phase_layered_timing(dev, sz: Sizes, report, lr, scene, idx, peel_call, tile
     stages["rest_of_generate"] = gen_ms - sum(stages.values())
     pack_ms, _ = time_ms(lambda: pack_peel_stream(entry_bf, verts, faces, exist),
                          sz.reps)
+    peel_work["block_hits"] = work["block_hits"].tolist()
     print("  stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
           + f"  [the peel gathers its face records inside the kernel; the plain "
           f"version's (R, 16) table, pack_peel_stream, would take {pack_ms:.3f} ms]")
@@ -1745,6 +1834,49 @@ def phase_sharded_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, mask,
                 peel_wide_sampled_ms=sub_ms, peel_wide_sampled_plain_ms=plain_ms)
 
 
+def deep_tier_sweep(args, tiers, reps):
+    """The deep instance built with other shared-memory tiers (a copy of
+    csrc/peel.cu under the build directory with kDeepSlotTier and
+    kDeepListTier replaced), each checked equal to the package's kernel on
+    the peel call ``args`` and timed there. Returns {(slot tier, list tier):
+    (ms, resident blocks per SM)}."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dmesh2_renderer_tpu_torch.ops import _kernels, peel
+
+    want = peel.peel_layers(*args)
+    source = _kernels.PEEL.source.read_text()
+    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    variants = {}
+    for slot_tier, list_tier in tiers:
+        path = _kernels.BUILD_DIR / f"peel_tiers_{slot_tier}_{list_tier}.cu"
+        path.write_text(re.sub(r"kDeepListTier = \d+;", f"kDeepListTier = {list_tier};",
+                               re.sub(r"kDeepSlotTier = \d+;",
+                                      f"kDeepSlotTier = {slot_tier};", source)))
+        variants[slot_tier, list_tier] = _kernels.Kernel(
+            "peel", str(path), _kernels.PEEL.argtypes,
+            extra_flags=_kernels.PEEL.flags[len(_kernels.NVCC_FLAGS):])
+    with ThreadPoolExecutor(len(variants)) as pool:
+        list(pool.map(_kernels.Kernel.build, variants.values()))
+    saved = _kernels.PEEL, _kernels.PEEL_DEEP
+    out = {}
+    try:
+        for key, kernel in variants.items():
+            _kernels.PEEL = kernel
+            _kernels.PEEL_DEEP = _kernels.Instance("peel_deep", kernel, "peel_deep_launch",
+                                                   saved[1].argtypes)
+            peel.deep_grid.cache_clear()
+            if not all(torch.equal(a, b) for a, b in zip(peel.peel_layers(*args), want)):
+                raise AssertionError(f"the deep peel with tiers {key} differs")
+            out[key] = (time_ms(lambda: peel.peel_layers(*args), reps)[0],
+                        peel.deep_occupancy()["blocks_per_sm"])
+    finally:
+        _kernels.PEEL, _kernels.PEEL_DEEP = saved
+        peel.deep_grid.cache_clear()
+    return out
+
+
 def phase_sharded_deep_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, mask,
                             peel_work, deep, card):
     """generate_layers_sharded on a world of one at L = sz.sharded_deep_layers
@@ -1756,7 +1888,7 @@ def phase_sharded_deep_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, m
     and the kernel's times on the sheet stack (phase 2d)."""
     from dmesh2_renderer_tpu_torch import functional
     from dmesh2_renderer_tpu_torch.ops.peel import (
-        deep_occupancy, peel_layers, peel_layers_plain)
+        MAX_WIDE_LAYERS, deep_grid, deep_occupancy, peel_layers, peel_layers_plain)
     from dmesh2_renderer_tpu_torch.parallel import generate_layers_sharded, make_view_mesh
 
     n_layers, n_ref, w, h = sz.sharded_deep_layers, sz.sharded_layers, sz.width, sz.height
@@ -1780,7 +1912,31 @@ def phase_sharded_deep_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, m
           f"pixels with more than {n_ref} layers {int((counts > n_ref).sum())}")
     if not same or int(nt) != 0:
         raise AssertionError("the deep peel's prefix differs from generate_layers")
+    tiers, over, _ = deep_tier_use(counts, peel_work, n_layers)
+    hist = {n: float((counts > n).float().mean())
+            for n in (16, 32, 48, 64, tiers["slot_tier"], 96)}
+    print(f"  counts at L={n_layers}: share of pixels above "
+          + ", ".join(f"{n} {s:.4%}" for n, s in hist.items())
+          + f"; max {int(counts.max())}; past the slot tier ({tiers['slot_tier']}) "
+          f"{over} pixels")
+    # The block's list at L = 128 takes every hit of its 128 entries (the
+    # gate keeps nothing out below 128 filled slots): its length, from the
+    # plain version's histogram over every tile (phase 5).
+    block_hits = torch.tensor(peel_work["block_hits"])
+    lists = int(block_hits[1:].sum())
+    list_hist = {n: int(block_hits[n + 1:].sum()) / lists
+                 for n in (8, 16, tiers["list_tier"], 32, 48)}
+    print(f"  block lists (pixel, 128-entry block) with a hit: {lists}; share longer "
+          "than " + ", ".join(f"{n} {s:.4%}" for n, s in list_hist.items())
+          + f"; longest {int(block_hits.nonzero().max())}")
     args = calls["peel_layers"][0]
+    # The cost of placement alone: the wide and the deep instance run the
+    # same rules at 96 and 97 layers on the same inputs.
+    placement = {n: time_ms(lambda: peel_layers(*args[:-1], n), sz.reps)[0]
+                 for n in (MAX_WIDE_LAYERS, MAX_WIDE_LAYERS + 1)}
+    print(f"  placement: peel_wide at L={MAX_WIDE_LAYERS} "
+          f"{placement[MAX_WIDE_LAYERS]:.3f} ms, peel_deep at L={MAX_WIDE_LAYERS + 1} "
+          f"{placement[MAX_WIDE_LAYERS + 1]:.3f} ms; on {card}")
     plain_ms, plain = timed_once(lambda: peel_layers_plain(
         *args, tiles=tiles, group=sz.plain_peel_group))
     compare_peel(calls["peel_layers"][1], plain,
@@ -1793,13 +1949,24 @@ def phase_sharded_deep_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, m
     report["peel_deep"].update(ms=ms, plain_ms=deep["plain_ms"], bound_ms=bound,
                                bound_by=bound_by, library_ms=None,
                                plain_inputs=deep["inputs"], ms_plain_inputs=deep["ms"])
-    occ = deep_occupancy()
+    occ = dict(deep_occupancy(), grid=min(2 * args[4].shape[0], deep_grid(dev.index)))
+    occ["scratch_bytes"] = occ["grid"] * tiers["scratch_bytes"]
     print(f"  peel_deep at L={n_layers}: {ms:.3f} ms (runs {[round(t, 3) for t in runs]}), "
           f"full-scan bound {bound:.3f} ms ({bound_by}; {work['bytes']} bytes, "
-          f"{work['ops']} operations); deep instance {occ}; on {card}")
+          f"{work['ops']} operations); deep instance {occ}, tiers {tiers}; on {card}")
+    if occ["local_bytes"] or occ["blocks_per_sm"] < 2:
+        raise AssertionError(f"the deep instance spills or holds under 2 blocks per SM: {occ}")
+    sweep = deep_tier_sweep(args, sz.deep_tier_sweep, sz.reps)
+    print("  the deep instance with other tiers (slots, list entries) on the same "
+          "inputs: " + "; ".join(f"{key}: {b} blocks per SM, {t:.3f} ms"
+                                 for key, (t, b) in sweep.items())
+          + f"; the package's ({tiers['slot_tier']}, {tiers['list_tier']}): "
+          f"{occ['blocks_per_sm']} blocks per SM, {ms:.3f} ms")
     return dict(peel_deep_layers=n_layers, peel_deep_ms=ms, peel_deep_runs_ms=runs,
                 peel_deep_bound_ms=bound, peel_deep_resources=occ,
-                peel_deep_sheet_stack=deep)
+                peel_deep_sheet_stack=deep, peel_deep_counts_above=hist,
+                peel_deep_lists_longer=list_hist, peel_placement_ms=placement,
+                peel_deep_tier_sweep={f"{a},{b}": v for (a, b), v in sweep.items()})
 
 
 def config5_scene(sz: Sizes):

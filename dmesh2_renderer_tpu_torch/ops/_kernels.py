@@ -123,17 +123,24 @@ class Kernel:
         int ``args`` first): registers per thread, static and dynamic shared
         memory and local (spill) bytes, and resident 256-thread blocks per
         SM (the peel's for its 8-slot instance)."""
+        return self.query(function or f"{self.name}_occupancy", args,
+                          ("registers", "static_smem", "dynamic_smem", "local_bytes",
+                           "blocks_per_sm"))
+
+    def query(self, function: str, args, keys) -> dict:
+        """The ints the C function ``function`` writes, after the int
+        ``args``, into an array of ``len(keys)``, by ``keys``; raises unless
+        it returns 0."""
         lib = self.load()
-        fn = getattr(lib, function or f"{self.name}_occupancy")
+        fn = getattr(lib, function)
         fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-        out = (ctypes.c_int * 5)()
+        out = (ctypes.c_int * len(keys))()
         err = fn(*args, out)
         if err != 0:
             msg = lib.cuda_error_string(err).decode()
-            raise RuntimeError(f"{self.name} occupancy query failed: {msg} ({err})")
-        return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes",
-                         "blocks_per_sm"), out))
+            raise RuntimeError(f"{self.name} query {function} failed: {msg} ({err})")
+        return dict(zip(keys, out))
 
 
 PACK_STREAM = Kernel("pack_stream", "pack_stream.cu", [
@@ -222,8 +229,9 @@ class Instance:
 
 
 # peel.cu's wide instance (17 .. 96 slots in shared memory) and deep
-# instance (above 96: the same code, its slots in a global scratch), apart
-# from its register instances (1 .. 16 slots), which PEEL counts.
+# instance (above 96: the same rules, its slots and list in shared memory up
+# to a tier and in a global scratch past it), apart from its register
+# instances (1 .. 16 slots), which PEEL counts.
 PEEL_WIDE = Instance("peel_wide", PEEL)
 PEEL_DEEP = Instance("peel_deep", PEEL, "peel_deep_launch", [
     P, L,                 # entry_bf, R

@@ -34,6 +34,7 @@ version scans them all, counts them, and drops them too with
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -54,15 +55,17 @@ _INF = 3.0e38
 # prefix of the top-L' (every entry a block adds past its L-th is preceded
 # by L smaller ones), and the count is min(count', L).
 LAYER_INSTANCES = (1, 2, 4, 8, 16)
-# Above 16 the kernel's wide instance runs with exactly L slots, kept with
-# the block's list in shared memory (2 KiB per slot for the 128 pixels of a
-# half tile); this many fit beside its face staging in the 227 KiB a block
-# may opt in to on sm_90. Above it the deep instance runs the same code with
-# both arrays in a global scratch, sized by its resident blocks.
+# Above 16 the kernel runs with exactly L slots, each pixel's filled slots
+# counted in a register. The wide instance keeps the slots with the block's
+# list in shared memory (2 KiB per slot for the 128 pixels of a half tile);
+# this many fit beside its face staging in the 227 KiB a block may opt in to
+# on sm_90. Above it the deep instance keeps each pixel's first slots and
+# list entries in shared memory, up to tiers that csrc/peel.cu fixes
+# (:func:`deep_tiers`), and the rest in a global scratch, one slice per block
+# of a persistent grid (the blocks per SM of its occupancy query,
+# :func:`deep_occupancy`, six at its footprint on an H100, times the SMs),
+# and a counter from which the blocks take the half tiles.
 MAX_WIDE_LAYERS = 96
-# The deep instance's persistent blocks per SM: 32 warps, as the 8-slot
-# instance runs; its scratch takes 2 KiB x L per block.
-DEEP_BLOCKS_PER_SM = 8
 
 # Float operations counted from csrc/peel.cu. Per entry (one thread per
 # face of a block): edges, origin offset, q = t0 x e1 and q . e2 (23). Per
@@ -210,6 +213,8 @@ def _peel_group(records, starts, counts, ro, rdx, rdy, rdz, in_frame,
             work["hits"] += hit.sum()
             work["skipped"] += (pairs & skip).sum()
             work["gated"] += gated.sum()
+            work["block_hits"] += torch.bincount(hit.sum(dim=1).flatten(),
+                                                 minlength=STREAM_BLOCK + 1)
         if prune:
             valid = valid & ~skip & ~gated
         tt = torch.where(valid, tt, _INF)                              # (G, C, N)
@@ -257,7 +262,10 @@ def peel_layers_plain(entry_bf, faces, verts, faces_existence, tile_starts,
     ``pairs`` of a full scan and the ``hits`` found, the pairs the kernel's
     skip rule ``skipped`` (the carried L-th slot at the block's start <=
     :func:`skip_bound`) and the hits of the other pairs that its insertion
-    gate keeps out of the block's list (``gated``: t >= that slot).
+    gate keeps out of the block's list (``gated``: t >= that slot), and
+    ``block_hits``, a (129,) int64 histogram of the hits of each (pixel,
+    128-entry block): where the gate keeps nothing out, the length of the
+    block's list before exact t ties inside the block collapse.
     ``prune=True`` drops both, as the kernel does; the result is the same
     (the kernel's header note proves it).
     Returns (layers (B, H, W, L) int32, counts (B, H, W) int32).
@@ -272,6 +280,7 @@ def peel_layers_plain(entry_bf, faces, verts, faces_existence, tile_starts,
     if work is not None:
         for key in ("entries", "pairs", "hits", "skipped", "gated"):
             work[key] = torch.zeros((), dtype=torch.int64, device=dev)
+        work["block_hits"] = torch.zeros(STREAM_BLOCK + 1, dtype=torch.int64, device=dev)
     tile_ids = (torch.arange(b * gx * gy, device=dev) if tiles is None
                 else tiles.to(device=dev, dtype=torch.int64))
     for g0 in range(0, tile_ids.shape[0], group):
@@ -311,9 +320,28 @@ def wide_occupancy(num_layers: int) -> dict:
 
 
 def deep_occupancy() -> dict:
-    """The deep instance's resources (the same at every slot count: its
-    slots live in global memory), in the keys of :func:`wide_occupancy`."""
+    """The deep instance's resources, its tiers' dynamic shared memory
+    included (the same at every slot count), in the keys of
+    :func:`wide_occupancy`."""
     return _kernels.PEEL.occupancy("peel_deep_occupancy")
+
+
+def deep_tiers(num_layers: int) -> dict:
+    """The deep instance's tiers, the slots (``slot_tier``) and block-list
+    entries (``list_tier``) of each pixel kept in shared memory, and its
+    global scratch per persistent block at ``num_layers`` (>
+    ``MAX_WIDE_LAYERS``) slots (``scratch_bytes``)."""
+    return _kernels.PEEL.query("peel_deep_tiers", (num_layers,),
+                               ("slot_tier", "list_tier", "scratch_bytes"))
+
+
+@functools.lru_cache(maxsize=None)
+def deep_grid(device_index: int) -> int:
+    """The deep instance's persistent blocks on a card: its resident blocks
+    per SM times the SMs."""
+    with torch.cuda.device(device_index):
+        per_sm = deep_occupancy()["blocks_per_sm"]
+    return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
@@ -377,9 +405,10 @@ def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
     tile_ptr = P(None if tiles is None else tiles.data_ptr())
     with torch.cuda.device(dev):
         if inst > MAX_WIDE_LAYERS:
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            grid = min(2 * n_blocks, DEEP_BLOCKS_PER_SM * sms)
-            scratch = torch.empty((grid, 4, inst, 128), dtype=f32, device=dev)
+            grid = min(2 * n_blocks, deep_grid(dev.index))
+            # the blocks' slices, then the kernel's counter of half tiles
+            scratch = torch.empty(grid * deep_tiers(inst)["scratch_bytes"] // 4 + 1,
+                                  dtype=f32, device=dev)
             err = _kernels.PEEL_DEEP.load()(
                 P(entry_bf.data_ptr()), r, P(faces.data_ptr()), P(verts.data_ptr()),
                 P(faces_existence.data_ptr()), f, P(tile_starts.data_ptr()),

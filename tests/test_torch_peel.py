@@ -4,7 +4,9 @@ against the JAX peel_layers (Pallas in interpret mode) on identical
 streams, tile ranges and rays; the kernel's skip bound (mirrored in
 ops/peel.py) on adversarial faces and rays, the plain peel with the
 kernel's skip rule and insertion gate applied, and their work counts
-against numpy."""
+against numpy; above 96 layers, on sheet stacks over several tiles, the
+plain peel's count of filled slots and its prefix property, and the CPU
+path of peel_layers."""
 
 import functools
 
@@ -20,6 +22,7 @@ from dmesh2_renderer_tpu.ops.binning import unblock_stream
 from dmesh2_renderer_tpu.ops.reference import face_depth01
 from dmesh2_renderer_tpu.utils import meshes as JM
 from dmesh2_renderer_tpu.utils.validate import check_layered_args as jax_check
+from dmesh2_renderer_tpu_torch import geometry as TG
 from dmesh2_renderer_tpu_torch.ops import peel as TP
 from dmesh2_renderer_tpu_torch.utils import meshes as TM
 from dmesh2_renderer_tpu_torch.utils.validate import check_layered_args
@@ -642,3 +645,101 @@ def test_plain_peel_beyond_96_layers_on_a_sheet_stack(num_layers):
     assert int((sheet == 20).sum()) == 1
     ids = np_l[0, 3, 11][sheet == 62]
     assert ids[1] == ids[0] + 2 and ids[0] in (126, 127)
+
+
+# ---------------------------------------------------------------------------
+# Above MAX_WIDE_LAYERS on several tiles: the contract the kernel's filled
+# count per pixel relies on.
+
+DEEP_FRAME = 32
+
+
+def _sheet_tiles(half_size):
+    """utils/meshes.sheet_stack of ``half_size`` seen from (0, 0, 3) down -z
+    (a 60 degree field of view) through a DEEP_FRAME^2 window: each of its
+    four tiles lists every face in id order, nearest first, the tiles one
+    after another in the stream, so the 128-entry blocks (at absolute
+    offsets) straddle the tiles. Returns the port's peel arguments less
+    num_layers (CPU tensors) and the faces."""
+    verts, faces = TM.sheet_stack(half_size=half_size)
+    f = faces.shape[0]
+    n_tiles = (DEEP_FRAME // 16) ** 2
+    mv = TM.look_at((0.0, 0.0, 3.0), (0.0, 0.0, 0.0))[None]
+    proj = TM.perspective(60.0, 1.0)[None]
+    ray_o, ray_d = TG.init_rays(torch.as_tensor(mv), torch.as_tensor(proj),
+                                DEEP_FRAME, DEEP_FRAME)
+    args = (np.tile(np.arange(f, dtype=np.int32), n_tiles), faces, verts,
+            np.ones(f, np.int32), np.arange(n_tiles, dtype=np.int32) * f,
+            np.full(n_tiles, f, np.int32))
+    return (*(torch.as_tensor(x) for x in args), ray_o[:, 0, 0, :].contiguous(),
+            ray_d.contiguous(), DEEP_FRAME, DEEP_FRAME), faces
+
+
+@pytest.fixture(scope="module")
+def deep_peels():
+    """The plain peel at 97 and 128 layers, once per module, on the sheet
+    stack (half size 5: every ray crosses all 150 sheets, 153 hits) and on
+    smaller sheets (half size 1, whose edges cross the frame: counts vary
+    across pixels). {(scene, L): (args, faces, layers, counts)}."""
+    out = {}
+    for scene, half_size in (("stack", 5.0), ("edges", 1.0)):
+        args, faces = _sheet_tiles(half_size)
+        for num_layers in (97, 128):
+            out[scene, num_layers] = (args, faces,
+                                      *TP.peel_layers_plain(*args, num_layers))
+    return out
+
+
+@pytest.mark.parametrize("scene", ["stack", "edges"])
+@pytest.mark.parametrize("num_layers", [97, 128])
+def test_plain_peel_counts_its_filled_slots_beyond_96_layers(deep_peels, scene,
+                                                             num_layers):
+    """The plain peel's contract, which the kernel's count of filled slots
+    per pixel keeps: the count is the number of ids >= 0, the ids before it
+    are >= 0 and every id past it is -1."""
+    _, _, layers, counts = deep_peels[scene, num_layers]
+    lay, cnt = to_numpy(layers), to_numpy(counts)
+    filled = np.arange(num_layers) < cnt[..., None]
+    np.testing.assert_array_equal(cnt, (lay >= 0).sum(-1))
+    assert (lay[filled] >= 0).all() and (lay[~filled] == -1).all()
+    if scene == "stack":
+        assert (cnt == num_layers).all()
+    else:
+        # counts on both sides of any shared-memory tier a kernel may keep
+        assert cnt.min() == 0 and cnt.max() == num_layers
+        assert len(np.unique(cnt)) > 20
+
+
+@pytest.mark.parametrize("scene", ["stack", "edges"])
+def test_plain_peel_at_97_layers_is_a_prefix_of_128(deep_peels, scene):
+    """The first 97 layers at L = 128 are the layers at L = 97, and the
+    counts the counts capped at 97, also where exact t ties lie across
+    128-entry blocks: the copies of sheet 62 (entries 126-129 of the first
+    tile, across the block at 128) stay both, adjacent, in the first
+    tile."""
+    _, faces, l97, c97 = deep_peels[scene, 97]
+    _, _, l128, c128 = deep_peels[scene, 128]
+    np.testing.assert_array_equal(to_numpy(l128)[..., :97], to_numpy(l97))
+    np.testing.assert_array_equal(np.minimum(to_numpy(c128), 97), to_numpy(c97))
+    if scene == "stack":
+        first = to_numpy(l128)[0, :16, :16].reshape(256, 128)
+        sheet = faces[first, 0] // 4
+        pair = (sheet == 62).sum(-1) == 2
+        assert pair.any()
+        at = np.argmax(sheet[pair] == 62, axis=-1)
+        ids = first[pair][np.arange(int(pair.sum())), at]
+        assert (first[pair][np.arange(int(pair.sum())), at + 1] == ids + 2).all()
+
+
+def test_deep_peel_on_cpu_tensors_takes_the_plain_version(deep_peels):
+    """peel_layers on CPU tensors at L = 128 (the deep instance's range on
+    the card) returns the plain version's output and neither builds, loads
+    nor launches a kernel."""
+    from dmesh2_renderer_tpu_torch.ops import _kernels
+
+    args, _, want_l, want_c = deep_peels["edges", 128]
+    before = {k.name: k.launches for k in _kernels.COUNTED}
+    layers, counts = TP.peel_layers(*args, 128)
+    assert {k.name: k.launches for k in _kernels.COUNTED} == before
+    assert _kernels.PEEL._lib is None
+    assert torch.equal(layers, want_l) and torch.equal(counts, want_c)
