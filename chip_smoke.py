@@ -10,8 +10,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. Build every CUDA kernel from ``dmesh2_renderer_tpu_torch/csrc`` (one nvcc
    per source, all at once) and print the card's name and power limit, the
    ptxas resource lines and each kernel's registers, shared memory, spill
-   and resident blocks per SM (the peel's for its 8-slot instance, for its
-   wide instance at 32 and 64 slots and for its deep instance).
+   and resident blocks per SM (the peel's for its 8-slot instance and for
+   its wide and deep instances).
 1b. The float32 rate calibration (``utils/fp32_rate.py``, the counterpart of
    ``benchmarks/micro_vpu.py``): ``quad_map``'s uncontracted instance equal
    to its plain version bit for bit on a seeded (512, 1024) block at L = 1,
@@ -47,9 +47,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    eyes inside the grid (one on three grid planes, so faces there are
    edge-on and rays graze the planes beside them) and one outside eye on two
    grid planes looking along them, through a ragged 333x201 frame, at 1, 8,
-   16, 17, 32, 64, 97 and 128 layers (17 to 64 run the wide instance, 38,208
-   pixels there have more than 16 layers; 97 and 128 the deep one, whose
-   pixels past its shared-memory tiers are printed), and at 16 and 17 (the
+   16, 17, 24, 31, 32, 33, 64, 96, 97 and 128 layers (17 to 96 run the wide
+   instance, whose store walk changes form around 32 layers, 38,208 pixels
+   there have more than 16 layers; 97 and 128 the deep one; the pixels past
+   each one's shared-memory tiers are printed), and at 16 and 17 (the
    largest register instance and the smallest wide one, where the skip rule
    still drops pairs) with the rays scaled by 2 (longer than the skip bound
    assumes: those pixels skip nothing) and by 0.5. The plain version's
@@ -57,16 +58,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    insertion gate keeps out are printed. First a tie scene of three
    128-entry blocks at 3, 16, 17, 32 and 97 layers: its layers must be
    [257, 130, 5] (a tie across blocks, then a displaced slot carried past
-   its tie). Then, above 96 layers (the deep instance): its branch-free
-   reciprocal must equal 1.0f / x on every float of its range (all 2^32 bit
-   patterns tried); a stack of 150 sheets (utils/meshes.sheet_stack, three
-   listed twice: exact t ties, some across 128-entry blocks) seen head-on
-   through 640x480 at 97 and 128 layers: every tile equal, counts = L on
-   every pixel (all past the slot tier), block lists past the list tier,
-   and 2,400 half-tile units, more than the deep instance's persistent
-   blocks, so each block loops over units; and the same with sheets of half
-   size 1.5, whose edges cross the frame, so that counts fall from L to 0
-   and warps hold pixels on both sides of the slot tier.
+   its tie). Then, above 16 layers (the tiered instances): their
+   branch-free reciprocal must equal 1.0f / x on every float of its range
+   (all 2^32 bit patterns tried); a stack of 150 sheets
+   (utils/meshes.sheet_stack, three listed twice: exact t ties, some across
+   128-entry blocks) seen head-on through 640x480 at 17, 32, 64, 96, 97 and
+   128 layers: every tile equal, counts = L on every pixel (all past the
+   slot tier), block lists past the list tier, and 2,400 half-tile units,
+   more than either instance's persistent blocks, so each block loops over
+   units; and the same with sheets of half size 1.5, whose edges cross the
+   frame, so that counts fall from L to 0 and warps hold pixels on both
+   sides of the slot tier.
 2c. Both compositors against their plain versions on a synthetic stress
    scene (2 views x 1,000 small faces piled over a few tiles of a ragged
    72x40 window; bbox edges on pixel boundaries; entries no pixel blends
@@ -115,16 +117,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    headline at 32 layers: equal bit for bit to ``functional.generate_layers``
    (the wide instance must launch), the kernel equal to its plain version
    on the sampled tiles; its time beside the full-scan bound (the same as
-   at 8 layers: the bound does not depend on L), and the kernel's and the
-   plain version's times on the sampled tiles. Then the same at 128 layers
+   at 8 layers: the bound does not depend on L), the kernel's and the plain
+   version's times on the sampled tiles beside those tiles' after-skip
+   bound at 32 layers, and its resources (it must not spill). Then the wide
+   instance built with the deep instance's tiers at 17, 24, 32, 64 and 96
+   layers, and with the other tiers of
+   ``Sizes.wide_tier_sweep`` at 32 and 64, each equal to the package's
+   kernel and timed on the same inputs. Then the same at 128 layers
    (the deep instance must launch): its first 32 layers and counts equal
    the 32-layer peel's on every pixel, all 128 equal the plain version's on
    the sampled tiles; the shares of pixels whose counts pass 16, 32, 48, 64,
    the slot tier and 96, the shares of (pixel, 128-entry block) lists
    longer than 8, 16, the list tier, 32 and 48 (from the plain version's
-   histogram over every tile in phase 5), and the wide and the deep
-   instance at 96 and 97 layers on the same inputs (placement: shared
-   memory against the tiers); its time beside the bound, and its resources
+   histogram over every tile in phase 5), and the wide instance at 96
+   layers and the deep one at 97 on the same inputs (continuity: the first
+   96 layers must be equal, the times are printed side by side); its time
+   beside the bound, and its resources
    (registers, static and dynamic shared memory, spill, blocks per SM, grid,
    scratch bytes): it must not spill and must hold 2 blocks per SM. Last,
    the deep instance built with the larger tiers of
@@ -204,7 +212,8 @@ Trainer's warm-up steps and the fitting example's first run; ``quad_map``'s
 from the calibration, timed at L = 2048 uncontracted; ``peel`` is the register instances, 1 to 16
 slots, timed at 8, ``peel_wide`` the wide instance, timed at 32, whose
 ``plain_ms`` is taken on the sampled tiles named in ``plain_tiles``, beside
-the kernel's ``ms_plain_tiles`` there, and ``peel_deep`` the deep
+the kernel's ``ms_plain_tiles`` there and those tiles' after-skip bound
+``bound_ms_after_skip_plain_tiles``, and ``peel_deep`` the deep
 instance, timed at 128, whose ``plain_ms`` is taken on the sheet stack
 named in ``plain_inputs``, beside the kernel's ``ms_plain_inputs`` there)
 and the card's ``nvidia-smi`` name and power
@@ -313,21 +322,21 @@ class Sizes:
     # planes lie at multiples of 2.4 / adv_res from -1.2, three views.
     adv_res: int = 12
     adv_frame: tuple = (333, 201)                   # width, height (ragged)
-    adv_layers: tuple = (1, 8, 16, 17, 32, 64, 97, 128)
+    adv_layers: tuple = (1, 8, 16, 17, 24, 31, 32, 33, 64, 96, 97, 128)
     adv_capacity: int = 1 << 21
     adv_ray_scales: tuple = (2.0, 0.5)
     adv_ray_layers: tuple = (16, 17)
-    # Above 96 layers (the deep instance): utils/meshes.sheet_stack, 150
+    # Above 16 layers (the tiered instances): utils/meshes.sheet_stack, 150
     # sheets of two triangles (three listed twice: exact t ties, some across
     # 128-entry blocks) seen head-on through a deep_frame window, every ray
-    # crossing all of them; at deep_layers layers. 1,200 tiles: 2,400
-    # half-tile units, more than the persistent grid's blocks, so blocks
-    # loop and reuse their scratch.
+    # crossing all of them; at deep_layers layers (the wide instance up to
+    # 96, the deep one above). 1,200 tiles: 2,400 half-tile units, more than
+    # the persistent grid's blocks, so blocks loop and reuse their scratch.
     deep_frame: tuple = (640, 480)                  # width, height
     deep_half_size: float = 5.0
     # Sheets whose edges cross the frame: about 57 to 153 hits per ray.
     deep_ring_half_size: float = 1.5
-    deep_layers: tuple = (97, 128)
+    deep_layers: tuple = (17, 32, 64, 96, 97, 128)
     deep_capacity: int = 1 << 19
     # Tiles the plain peel takes at once on the card: its time is mostly
     # the launches of its L x L merge, one set per group.
@@ -337,9 +346,15 @@ class Sizes:
     sharded_layers: int = 32
     sharded_deep_layers: int = 128
     # ... and the deep instance built with these other (slot, list) tiers:
-    # the one that holds 95% of the headline's pixels (2 blocks per SM), and
-    # two between it and the package's.
-    deep_tier_sweep: tuple = ((80, 24), (48, 18), (32, 15))
+    # the one that holds 95% of the headline's pixels (2 blocks per SM), two
+    # between it and the package's, and the wide instance's.
+    deep_tier_sweep: tuple = ((80, 24), (48, 18), (32, 15), (8, 8))
+    # The wide instance: built with the deep instance's tiers at
+    # deep_tier_layers, and with these other (slot, list) tiers at
+    # wide_sweep_layers, each on the layered headline's inputs.
+    deep_tier_layers: tuple = (17, 24, 32, 64, 96)
+    wide_tier_sweep: tuple = ((4, 4), (8, 4), (16, 4), (16, 8), (32, 8))
+    wide_sweep_layers: tuple = (32, 64)
     # Phase 6c: the Trainer at the JAX package's BASELINE.json config 5.
     trainer_subdiv: int = 3
     trainer_views: int = 64
@@ -1387,7 +1402,7 @@ def phase_peel_adversarial(dev, sz: Sizes, report):
     deep), and rays scaled off unit length."""
     from dmesh2_renderer_tpu_torch import LayeredRenderer, RasterConfig
     from dmesh2_renderer_tpu_torch.ops.peel import (
-        MAX_WIDE_LAYERS, peel_layers, peel_layers_plain)
+        LAYER_INSTANCES, peel_layers, peel_layers_plain)
     from dmesh2_renderer_tpu_torch.utils.meshes import look_at, perspective, tet_grid
 
     w, h = sz.adv_frame
@@ -1421,10 +1436,10 @@ def phase_peel_adversarial(dev, sz: Sizes, report):
               f"{int(lr.last_aux[1])}; pixels with a layer {int((counts > 0).sum())}, "
               f"with more than 16 {int((counts > 16).sum())}; plain version's work "
               f"{work_counts(work)}")
-        if num_layers > MAX_WIDE_LAYERS:
-            tiers, over, lists = deep_tier_use(counts, work, num_layers)
-            print(f"    deep instance, tiers {tiers}: {over} pixels past the slot tier, "
-                  f"{lists} block lists past the list tier")
+        if num_layers > LAYER_INSTANCES[-1]:
+            tiers, over, lists = tier_use(counts, work, num_layers)
+            print(f"    {peel_kernel_name(num_layers)}, tiers {tiers}: {over} pixels past "
+                  f"the slot tier, {lists} block lists past the list tier")
         if int(counts.max()) < min(num_layers, 2):
             raise AssertionError("adversarial scene gives too few layers")
     # Rays off unit length, in the largest register instance and the wide one.
@@ -1457,14 +1472,15 @@ def tie_pairs_across_blocks(args, faces, duplicates):
     return n
 
 
-def deep_tier_use(counts, work, num_layers):
-    """The deep instance's tiers at ``num_layers`` and how far a peel's
-    pixels pass them: the pixels with more slots than the slot tier, and the
-    (pixel, 128-entry block) lists longer than the list tier (from the plain
-    version's ``block_hits``, ``work``). Returns (tiers, pixels, lists)."""
-    from dmesh2_renderer_tpu_torch.ops.peel import deep_tiers
+def tier_use(counts, work, num_layers):
+    """The tiers of the tiered instance at ``num_layers`` (> 16) and how far
+    a peel's pixels pass them: the pixels with more slots than the slot
+    tier, and the (pixel, 128-entry block) lists longer than the list tier
+    (from the plain version's ``block_hits``, ``work``). Returns (tiers,
+    pixels, lists)."""
+    from dmesh2_renderer_tpu_torch.ops.peel import peel_tiers
 
-    tiers = deep_tiers(num_layers)
+    tiers = peel_tiers(num_layers)
     hits = torch.as_tensor(work["block_hits"])
     return (tiers, int((counts > tiers["slot_tier"]).sum()),
             int(hits[tiers["list_tier"] + 1:].sum()))
@@ -1488,17 +1504,19 @@ def reciprocal_mismatches(dev) -> int:
 
 
 def phase_peel_deep(dev, sz: Sizes, report):
-    """The peel above 96 layers (the deep instance) against its plain
-    version on every tile of the sheet stack, at ``sz.deep_layers``; every
-    ray has more hits than that, so counts reach L and pass the slot tier,
-    block lists pass the list tier, exact t ties lie across blocks, and the
-    half tiles outnumber the persistent grid's blocks. Then smaller sheets
-    (``sz.deep_ring_half_size``), whose edges cross the frame: counts fall
-    from L at the centre, and warps hold pixels on both sides of the slot
-    tier. Returns the plain version's and the kernel's times on the first
-    scene at the largest L."""
+    """The peel above 16 layers (the tiered instances: wide up to 96, deep
+    above) against its plain version on every tile of the sheet stack, at
+    ``sz.deep_layers``; every ray has more hits than that, so counts reach L
+    and pass the slot tier, block lists pass the list tier, exact t ties lie
+    across blocks, and the half tiles outnumber the persistent grid's
+    blocks. Then smaller sheets (``sz.deep_ring_half_size``), whose edges
+    cross the frame: counts fall from L at the centre, and warps hold pixels
+    on both sides of the slot tier. First the deep instance's branch-free
+    reciprocal against 1.0f / x. Returns the plain version's and the
+    kernel's times on the first scene at the largest L."""
     from dmesh2_renderer_tpu_torch import LayeredRenderer, RasterConfig
-    from dmesh2_renderer_tpu_torch.ops.peel import deep_grid, peel_layers, peel_layers_plain
+    from dmesh2_renderer_tpu_torch.ops.peel import (
+        MAX_WIDE_LAYERS, peel_layers, peel_layers_plain, tiered_grid)
     from dmesh2_renderer_tpu_torch.utils.meshes import look_at, perspective, sheet_stack
 
     w, h = sz.deep_frame
@@ -1507,20 +1525,19 @@ def phase_peel_deep(dev, sz: Sizes, report):
     proj = perspective(60.0, w / h)[None]
     lr = LayeredRenderer(mv, proj, w, h, config=RasterConfig(
         binning_capacity=sz.deep_capacity, max_tiles_per_face=64, num_giant_faces=512))
-    grid = deep_grid(dev.index)
     # Exponent fields 0, 253, 254 and 255 of either sign are out of range.
     in_range = (1 << 32) - 8 * (1 << 23)
     bad = reciprocal_mismatches(dev)
-    print(f"phase 2d (deep): the deep instance's branch-free 1/det differs from "
+    print(f"phase 2d (tiered): the tiered instances' branch-free 1/det differs from "
           f"1.0f / x on {bad} of the {in_range} floats of its range")
     if bad:
-        raise AssertionError("the deep peel's reciprocal differs from 1.0f / x")
+        raise AssertionError("the tiered peel's reciprocal differs from 1.0f / x")
     out = {}
     for half_size in (sz.deep_half_size, sz.deep_ring_half_size):
         verts, faces = sheet_stack(half_size=half_size, duplicates=duplicates)
         f = faces.shape[0]
         ring = half_size != sz.deep_half_size
-        print(f"phase 2d (deep): peel kernel vs plain version on every tile, sheet "
+        print(f"phase 2d (tiered): peel kernel vs plain version on every tile, sheet "
               f"stack ({f} faces: 150 sheets of half size {half_size}, {duplicates} "
               f"listed twice), {w}x{h}, L in {sz.deep_layers}")
         scene = (verts, faces, np.zeros((1, 4), np.int32), np.full((f, 2), -1, np.int32),
@@ -1531,17 +1548,18 @@ def phase_peel_deep(dev, sz: Sizes, report):
                                                  "sheet stack", report, sz, work=work)
             crossing = tie_pairs_across_blocks(args, faces, duplicates)
             units = 2 * args[4].shape[0]
-            tiers, over, lists = deep_tier_use(counts, work, num_layers)
+            grid = tiered_grid(dev.index, num_layers > MAX_WIDE_LAYERS)
+            tiers, over, lists = tier_use(counts, work, num_layers)
             # warps: two tile rows of 16 pixels (the frame is a multiple of 16)
             warps = (counts > tiers["slot_tier"]).reshape(h // 2, 2, w // 16, 16)
             mixed = int((warps.any(3).any(1) & ~warps.all(3).all(1)).sum())
             print(f"    binning num_rendered={int(lr.last_aux[0])} num_truncated="
                   f"{int(lr.last_aux[1])}; counts min {int(counts.min())} max "
                   f"{int(counts.max())}; tied pairs across 128-entry blocks {crossing}; "
-                  f"{units} half-tile units over a persistent grid of "
-                  f"{min(units, grid)} blocks; tiers {tiers}: {over} pixels past the "
-                  f"slot tier, {mixed} warps on both sides of it, {lists} block lists "
-                  "past the list tier")
+                  f"{units} half-tile units over {peel_kernel_name(num_layers)}'s "
+                  f"persistent grid of {min(units, grid)} blocks; tiers {tiers}: {over} "
+                  f"pixels past the slot tier, {mixed} warps on both sides of it, {lists} "
+                  "block lists past the list tier")
             if ((int(counts.min()) != num_layers and not ring) or crossing == 0
                     or units <= grid or over == 0 or lists == 0 or (ring and mixed == 0)):
                 raise AssertionError(
@@ -1669,7 +1687,7 @@ def work_counts(work):
     return {k: int(v) for k, v in work.items() if k != "block_hits"}
 
 
-def peel_bound(args, work):
+def peel_bound(args, work, tiles=None, pixels=None):
     """Least time for the peel of these inputs (``work`` from the plain
     version): entry_bf of every walked entry, the face tables, the tile
     ranges and rays read once, layers and counts written once; against the
@@ -1678,7 +1696,8 @@ def peel_bound(args, work):
     JAX kernel's work; entries, pairs and hits do not depend on L, so
     neither does its operation count) and the work left after the kernel's
     skip rule at the L ``work`` was counted at (the skip bound per entry,
-    one comparison per skipped pair).
+    one comparison per skipped pair). With ``tiles`` (and ``pixels``, the
+    count of their pixels in the frame), for the peel of those tiles alone.
 
     Returns (full-scan ms, its limit, after-skip ms, its limit, counts)."""
     from dmesh2_renderer_tpu_torch.ops.peel import (
@@ -1687,10 +1706,12 @@ def peel_bound(args, work):
 
     _, faces, verts, exist, starts, counts, ray_o, ray_d, _, _, n_layers = args
     w = work_counts(work)
-    n_pix = ray_d.numel() // 3
+    if tiles is not None:
+        counts = counts[tiles.long()]
+    n_pix = ray_d.numel() // 3 if pixels is None else pixels
     nbytes = (int(counts.sum()) * 4 + faces.numel() * 4 + verts.numel() * 4
-              + exist.numel() * 4 + (starts.numel() + counts.numel()) * 4
-              + ray_o.numel() * 4 + ray_d.numel() * 4 + n_pix * (n_layers + 1) * 4)
+              + exist.numel() * 4 + 2 * counts.numel() * 4
+              + ray_o.numel() * 4 + n_pix * 3 * 4 + n_pix * (n_layers + 1) * 4)
     hit_ops = w["hits"] * OPS_PER_HIT
     ops = w["entries"] * OPS_PER_ENTRY + w["pairs"] * OPS_PER_PAIR + hit_ops
     ops_left = (w["entries"] * (OPS_PER_ENTRY + OPS_PER_ENTRY_BOUND)
@@ -1782,10 +1803,17 @@ def phase_sharded_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, mask,
     the layered headline, bit for bit equal to functional.generate_layers;
     the kernel (its wide instance) against its plain version on the sampled
     tiles (``tiles``, their pixels ``mask``), its time beside the full-scan
-    bound, and the kernel's and the plain version's times on those tiles."""
+    bound, and the kernel's time on those tiles beside the plain version's
+    and beside the after-skip bound of those tiles at that L (from the plain
+    version's work counts there); its resources (it must not spill). Then
+    the wide instance built with the deep instance's tiers at
+    ``sz.deep_tier_layers`` and with the tiers of ``sz.wide_tier_sweep`` at
+    ``sz.wide_sweep_layers``, each equal to the package's kernel and timed
+    on the same inputs."""
     from dmesh2_renderer_tpu_torch import functional
     from dmesh2_renderer_tpu_torch.ops.peel import (
-        peel_layers, peel_layers_plain, wide_occupancy)
+        LAYER_INSTANCES, peel_layers, peel_layers_plain, peel_tiers, tiered_grid,
+        wide_occupancy)
     from dmesh2_renderer_tpu_torch.parallel import generate_layers_sharded, make_view_mesh
 
     n_layers, w, h = sz.sharded_layers, sz.width, sz.height
@@ -1817,63 +1845,127 @@ def phase_sharded_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, mask,
     compare_peel(calls["peel_layers"][1], plain,
                  f"L={n_layers} {w}x{h}, {tiles.numel()} sampled tiles", report,
                  pixels=mask)
+    del plain
+    tile_work = {}
+    peel_layers_plain(*args, tiles=tiles, work=tile_work)
     ms, runs = time_ms(lambda: peel_layers(*args), sz.reps)
     sub_ms, _ = time_ms(lambda: peel_layers(*args, tiles=tiles), sz.reps)
     bound, bound_by, _, _, _ = peel_bound(args, peel_work)
+    _, _, sub_left, sub_left_by, sub_work = peel_bound(args, tile_work, tiles,
+                                                       int(mask.sum()))
     report["peel_wide"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                bound_by=bound_by, library_ms=None,
                                plain_tiles=f"{tiles.numel()} of {n_tiles}",
-                               ms_plain_tiles=sub_ms)
-    occ = wide_occupancy(n_layers)
+                               ms_plain_tiles=sub_ms,
+                               bound_ms_after_skip_plain_tiles=sub_left)
+    occ = dict(wide_occupancy(n_layers), grid=min(2 * n_tiles, tiered_grid(dev.index, False)))
+    tiers = peel_tiers(n_layers)
+    occ["scratch_bytes"] = occ["grid"] * tiers["scratch_bytes"]
     print(f"  peel_wide at L={n_layers}: {ms:.3f} ms (runs {[round(t, 3) for t in runs]}), "
           f"full-scan bound {bound:.3f} ms ({bound_by}); on the "
-          f"{tiles.numel()} sampled tiles: kernel {sub_ms:.3f} ms, plain {plain_ms:.3f} ms; "
-          f"wide instance {occ}")
+          f"{tiles.numel()} sampled tiles: kernel {sub_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"after-skip bound at L={n_layers} {sub_left:.4f} ms ({sub_left_by}; "
+          f"{sub_work}); wide instance {occ}, tiers {tiers}")
+    if occ["local_bytes"]:
+        raise AssertionError(f"the wide instance spills: {occ}")
+
+    # The wide instance with the deep instance's tiers (the deep launch
+    # taking every L above the register instances), and with other tiers of
+    # its own.
+    as_deep = peel_variants(args, {"deep tiers": {"kMaxWideLayers": LAYER_INSTANCES[-1]}},
+                          sz.deep_tier_layers, sz.reps)
+    sweep = peel_variants(args, {
+        key: {"kWideSlotTier": key[0], "kWideListTier": key[1]}
+        for key in sz.wide_tier_sweep}, sz.wide_sweep_layers, sz.reps)
+    for title, result in (("with the deep instance's tiers", as_deep),
+                          ("with other (slot, list) tiers", sweep)):
+        print(f"  the wide instance {title} on the same inputs, ms (blocks per SM):")
+        for key, by_l in result.items():
+            print(f"    {key}: " + ", ".join(
+                f"L={n} {r['ms']:.3f} ({r['blocks_per_sm']})" for n, r in by_l.items()))
+    bad = [(key, n) for result in (as_deep, sweep) for key, by_l in result.items()
+           for n, r in by_l.items() if not r["equal"]]
+    if bad:
+        raise AssertionError(f"peel.cu variants differ from the package's kernel: {bad}")
     return dict(peel_sharded_layers=n_layers, peel_wide_ms=ms, peel_wide_runs_ms=runs,
-                peel_wide_bound_ms=bound, peel_wide_resources=occ,
-                peel_wide_sampled_ms=sub_ms, peel_wide_sampled_plain_ms=plain_ms)
+                peel_wide_bound_ms=bound, peel_wide_resources=occ, peel_wide_tiers=tiers,
+                peel_wide_sampled_ms=sub_ms, peel_wide_sampled_plain_ms=plain_ms,
+                peel_wide_sampled_after_skip_bound_ms=sub_left,
+                peel_wide_sampled_work=sub_work,
+                peel_wide_deep_tiers={k: {str(n): r for n, r in v.items()}
+                                      for k, v in as_deep.items()},
+                peel_wide_tier_sweep={str(k): {str(n): r for n, r in v.items()}
+                                      for k, v in sweep.items()})
 
 
-def deep_tier_sweep(args, tiers, reps):
-    """The deep instance built with other shared-memory tiers (a copy of
-    csrc/peel.cu under the build directory with kDeepSlotTier and
-    kDeepListTier replaced), each checked equal to the package's kernel on
-    the peel call ``args`` and timed there. Returns {(slot tier, list tier):
-    (ms, resident blocks per SM)}."""
+@contextlib.contextmanager
+def peel_built_from(kernel, max_wide=None):
+    """ops/peel.py's wrapper launching the instances of ``kernel`` (a build
+    of another copy of csrc/peel.cu) and, if ``max_wide`` is given, taking
+    the deep instance above that many layers (the copy's kMaxWideLayers)."""
+    from dmesh2_renderer_tpu_torch.ops import _kernels, peel
+
+    saved = _kernels.PEEL, _kernels.PEEL_WIDE, _kernels.PEEL_DEEP, peel.MAX_WIDE_LAYERS
+    try:
+        _kernels.PEEL = kernel
+        _kernels.PEEL_WIDE, _kernels.PEEL_DEEP = (
+            _kernels.Instance(i.name, kernel, i.launch, i.argtypes) for i in saved[1:3])
+        if max_wide is not None:
+            peel.MAX_WIDE_LAYERS = max_wide
+        peel.tiered_grid.cache_clear()
+        yield
+    finally:
+        _kernels.PEEL, _kernels.PEEL_WIDE, _kernels.PEEL_DEEP, peel.MAX_WIDE_LAYERS = saved
+        peel.tiered_grid.cache_clear()
+
+
+def peel_variants(args, variants, layer_counts, reps):
+    """csrc/peel.cu built with other values of its named constants (a copy
+    under the build directory per variant, ``{label: {name: value}}``, all
+    nvcc runs at once; a variant that sets kMaxWideLayers also moves the
+    wrapper's switch to the deep instance), run on the peel call ``args`` at
+    each of ``layer_counts`` layers: each variant's layers and counts
+    compared with the package's kernel there, and each timed. Returns
+    {label: {L: {ms, blocks_per_sm, equal}}}, the package's kernel under the
+    label "package"."""
     import re
     from concurrent.futures import ThreadPoolExecutor
 
     from dmesh2_renderer_tpu_torch.ops import _kernels, peel
 
-    want = peel.peel_layers(*args)
     source = _kernels.PEEL.source.read_text()
     _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    variants = {}
-    for slot_tier, list_tier in tiers:
-        path = _kernels.BUILD_DIR / f"peel_tiers_{slot_tier}_{list_tier}.cu"
-        path.write_text(re.sub(r"kDeepListTier = \d+;", f"kDeepListTier = {list_tier};",
-                               re.sub(r"kDeepSlotTier = \d+;",
-                                      f"kDeepSlotTier = {slot_tier};", source)))
-        variants[slot_tier, list_tier] = _kernels.Kernel(
+    kernels = {}
+    for label, constants in variants.items():
+        text = source
+        for name, value in constants.items():
+            text, n = re.subn(rf"\b{name} = \d+;", f"{name} = {value};", text)
+            if n != 1:
+                raise ValueError(f"csrc/peel.cu sets {name} {n} times, not once")
+        path = _kernels.BUILD_DIR / ("peel_" + "_".join(
+            f"{name}{value}" for name, value in constants.items()) + ".cu")
+        path.write_text(text)
+        kernels[label] = _kernels.Kernel(
             "peel", str(path), _kernels.PEEL.argtypes,
             extra_flags=_kernels.PEEL.flags[len(_kernels.NVCC_FLAGS):])
-    with ThreadPoolExecutor(len(variants)) as pool:
-        list(pool.map(_kernels.Kernel.build, variants.values()))
-    saved = _kernels.PEEL, _kernels.PEEL_DEEP
-    out = {}
-    try:
-        for key, kernel in variants.items():
-            _kernels.PEEL = kernel
-            _kernels.PEEL_DEEP = _kernels.Instance("peel_deep", kernel, "peel_deep_launch",
-                                                   saved[1].argtypes)
-            peel.deep_grid.cache_clear()
-            if not all(torch.equal(a, b) for a, b in zip(peel.peel_layers(*args), want)):
-                raise AssertionError(f"the deep peel with tiers {key} differs")
-            out[key] = (time_ms(lambda: peel.peel_layers(*args), reps)[0],
-                        peel.deep_occupancy()["blocks_per_sm"])
-    finally:
-        _kernels.PEEL, _kernels.PEEL_DEEP = saved
-        peel.deep_grid.cache_clear()
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(_kernels.Kernel.build, kernels.values()))
+
+    def run(n):
+        return peel.peel_layers(*args[:-1], n)
+
+    def measure(n, want=None):
+        occ = (peel.deep_occupancy() if n > peel.MAX_WIDE_LAYERS
+               else peel.wide_occupancy(n))
+        got = run(n)
+        return dict(ms=time_ms(lambda: run(n), reps)[0], blocks_per_sm=occ["blocks_per_sm"],
+                    equal=want is None or all(torch.equal(a, b) for a, b in zip(got, want)))
+
+    want = {n: run(n) for n in layer_counts}
+    out = {"package": {n: measure(n) for n in layer_counts}}
+    for label, kernel in kernels.items():
+        with peel_built_from(kernel, variants[label].get("kMaxWideLayers")):
+            out[label] = {n: measure(n, want[n]) for n in layer_counts}
     return out
 
 
@@ -1888,7 +1980,7 @@ def phase_sharded_deep_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, m
     and the kernel's times on the sheet stack (phase 2d)."""
     from dmesh2_renderer_tpu_torch import functional
     from dmesh2_renderer_tpu_torch.ops.peel import (
-        MAX_WIDE_LAYERS, deep_grid, deep_occupancy, peel_layers, peel_layers_plain)
+        MAX_WIDE_LAYERS, deep_occupancy, peel_layers, peel_layers_plain, tiered_grid)
     from dmesh2_renderer_tpu_torch.parallel import generate_layers_sharded, make_view_mesh
 
     n_layers, n_ref, w, h = sz.sharded_deep_layers, sz.sharded_layers, sz.width, sz.height
@@ -1912,7 +2004,7 @@ def phase_sharded_deep_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, m
           f"pixels with more than {n_ref} layers {int((counts > n_ref).sum())}")
     if not same or int(nt) != 0:
         raise AssertionError("the deep peel's prefix differs from generate_layers")
-    tiers, over, _ = deep_tier_use(counts, peel_work, n_layers)
+    tiers, over, _ = tier_use(counts, peel_work, n_layers)
     hist = {n: float((counts > n).float().mean())
             for n in (16, 32, 48, 64, tiers["slot_tier"], 96)}
     print(f"  counts at L={n_layers}: share of pixels above "
@@ -1930,13 +2022,22 @@ def phase_sharded_deep_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, m
           "than " + ", ".join(f"{n} {s:.4%}" for n, s in list_hist.items())
           + f"; longest {int(block_hits.nonzero().max())}")
     args = calls["peel_layers"][0]
-    # The cost of placement alone: the wide and the deep instance run the
-    # same rules at 96 and 97 layers on the same inputs.
+    # Continuity: the wide instance at 96 layers and the deep one at 97, on
+    # the same inputs: the first 96 layers equal (the prefix property), the
+    # times near each other.
+    n_wide = MAX_WIDE_LAYERS
+    (l96, c96), (l97, c97) = (peel_layers(*args[:-1], n) for n in (n_wide, n_wide + 1))
+    prefix = torch.equal(l97[..., :n_wide], l96) and torch.equal(c97.clamp(max=n_wide), c96)
+    del l96, c96, l97, c97
     placement = {n: time_ms(lambda: peel_layers(*args[:-1], n), sz.reps)[0]
-                 for n in (MAX_WIDE_LAYERS, MAX_WIDE_LAYERS + 1)}
-    print(f"  placement: peel_wide at L={MAX_WIDE_LAYERS} "
-          f"{placement[MAX_WIDE_LAYERS]:.3f} ms, peel_deep at L={MAX_WIDE_LAYERS + 1} "
-          f"{placement[MAX_WIDE_LAYERS + 1]:.3f} ms; on {card}")
+                 for n in (n_wide, n_wide + 1)}
+    ratio = placement[n_wide] / placement[n_wide + 1]
+    print(f"  continuity: peel_wide at L={n_wide} {placement[n_wide]:.3f} ms, peel_deep "
+          f"at L={n_wide + 1} {placement[n_wide + 1]:.3f} ms ({ratio:.3f}x, within 15%: "
+          f"{abs(ratio - 1) <= 0.15}); first {n_wide} layers and counts equal: {prefix}; "
+          f"on {card}")
+    if not prefix:
+        raise AssertionError(f"the peel at L={n_wide} is not a prefix of L={n_wide + 1}")
     plain_ms, plain = timed_once(lambda: peel_layers_plain(
         *args, tiles=tiles, group=sz.plain_peel_group))
     compare_peel(calls["peel_layers"][1], plain,
@@ -1949,19 +2050,27 @@ def phase_sharded_deep_peel(dev, sz: Sizes, report, kernels, lr, scene, tiles, m
     report["peel_deep"].update(ms=ms, plain_ms=deep["plain_ms"], bound_ms=bound,
                                bound_by=bound_by, library_ms=None,
                                plain_inputs=deep["inputs"], ms_plain_inputs=deep["ms"])
-    occ = dict(deep_occupancy(), grid=min(2 * args[4].shape[0], deep_grid(dev.index)))
+    occ = dict(deep_occupancy(), grid=min(2 * args[4].shape[0], tiered_grid(dev.index, True)))
     occ["scratch_bytes"] = occ["grid"] * tiers["scratch_bytes"]
     print(f"  peel_deep at L={n_layers}: {ms:.3f} ms (runs {[round(t, 3) for t in runs]}), "
           f"full-scan bound {bound:.3f} ms ({bound_by}; {work['bytes']} bytes, "
           f"{work['ops']} operations); deep instance {occ}, tiers {tiers}; on {card}")
     if occ["local_bytes"] or occ["blocks_per_sm"] < 2:
         raise AssertionError(f"the deep instance spills or holds under 2 blocks per SM: {occ}")
-    sweep = deep_tier_sweep(args, sz.deep_tier_sweep, sz.reps)
+    sweep = peel_variants(args, {
+        key: {"kDeepSlotTier": key[0], "kDeepListTier": key[1]}
+        for key in sz.deep_tier_sweep}, (n_layers,), sz.reps)
+    bad = [key for key in sz.deep_tier_sweep if not sweep[key][n_layers]["equal"]]
     print("  the deep instance with other tiers (slots, list entries) on the same "
-          "inputs: " + "; ".join(f"{key}: {b} blocks per SM, {t:.3f} ms"
-                                 for key, (t, b) in sweep.items())
+          "inputs: " + "; ".join(f"{key}: {r[n_layers]['blocks_per_sm']} blocks per SM, "
+                                 f"{r[n_layers]['ms']:.3f} ms" for key, r in sweep.items()
+                                 if key != "package")
           + f"; the package's ({tiers['slot_tier']}, {tiers['list_tier']}): "
           f"{occ['blocks_per_sm']} blocks per SM, {ms:.3f} ms")
+    if bad:
+        raise AssertionError(f"the deep peel with tiers {bad} differs")
+    sweep = {key: (r[n_layers]["ms"], r[n_layers]["blocks_per_sm"])
+             for key, r in sweep.items() if key != "package"}
     return dict(peel_deep_layers=n_layers, peel_deep_ms=ms, peel_deep_runs_ms=runs,
                 peel_deep_bound_ms=bound, peel_deep_resources=occ,
                 peel_deep_sheet_stack=deep, peel_deep_counts_above=hist,
@@ -2709,8 +2818,7 @@ def main() -> int:
                 print(f"  {k.name}: {line.strip()}")
     resources = {k.name: k.occupancy() for k in _kernels.KERNELS}
     from dmesh2_renderer_tpu_torch.ops.peel import deep_occupancy, wide_occupancy
-    for n in (32, 64):
-        resources[f"peel_wide_{n}"] = wide_occupancy(n)
+    resources["peel_wide"] = wide_occupancy(sz.sharded_layers)
     resources["peel_deep"] = deep_occupancy()
     for name, occ in resources.items():
         print(f"  {name}: {occ}")
@@ -2734,7 +2842,7 @@ def main() -> int:
     run("2", phase_kernel_checks, dev, sz, report)
     run("2b", phase_layered_checks, dev, sz, report)
     run("2d", phase_peel_adversarial, dev, sz, report)
-    deep = run("2d-deep", phase_peel_deep, dev, sz, report)
+    deep = run("2d-tiered", phase_peel_deep, dev, sz, report)
     run("2c", phase_stress, dev, sz, report)
     renderer, s, forward, calls, work, bwd_work = run(
         "3", phase_main_path, dev, sz, report, counted)

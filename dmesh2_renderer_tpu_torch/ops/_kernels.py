@@ -228,12 +228,13 @@ class Instance:
         self.launches += 1
 
 
-# peel.cu's wide instance (17 .. 96 slots in shared memory) and deep
-# instance (above 96: the same rules, its slots and list in shared memory up
-# to a tier and in a global scratch past it), apart from its register
+# peel.cu's tiered instances, one body built with two pairs of tiers (each
+# pixel's first slots and list entries in shared memory, the rest in a
+# global scratch): the wide instance (17 .. 96 slots) and the deep one
+# (above), both launched through one C function that picks the tiers by the
+# slot count, each counted apart from the other and from the register
 # instances (1 .. 16 slots), which PEEL counts.
-PEEL_WIDE = Instance("peel_wide", PEEL)
-PEEL_DEEP = Instance("peel_deep", PEEL, "peel_deep_launch", [
+_TIERED_ARGTYPES = [
     P, L,                 # entry_bf, R
     P, P, P, I,           # faces, verts, faces_existence, F
     P, P, P, I,           # tile_starts, tile_counts, tile_ids (or null), n_blocks
@@ -243,7 +244,9 @@ PEEL_DEEP = Instance("peel_deep", PEEL, "peel_deep_launch", [
     P, P,                 # layers, counts
     P, I,                 # scratch, persistent blocks
     P,                    # stream
-])
+]
+PEEL_WIDE = Instance("peel_wide", PEEL, "peel_tiered_launch", _TIERED_ARGTYPES)
+PEEL_DEEP = Instance("peel_deep", PEEL, "peel_tiered_launch", _TIERED_ARGTYPES)
 
 KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD, PEEL, QUAD_MAP)
 # Everything with a launch count: the built kernels and the peel's wide and

@@ -56,15 +56,15 @@ _INF = 3.0e38
 # by L smaller ones), and the count is min(count', L).
 LAYER_INSTANCES = (1, 2, 4, 8, 16)
 # Above 16 the kernel runs with exactly L slots, each pixel's filled slots
-# counted in a register. The wide instance keeps the slots with the block's
-# list in shared memory (2 KiB per slot for the 128 pixels of a half tile);
-# this many fit beside its face staging in the 227 KiB a block may opt in to
-# on sm_90. Above it the deep instance keeps each pixel's first slots and
-# list entries in shared memory, up to tiers that csrc/peel.cu fixes
-# (:func:`deep_tiers`), and the rest in a global scratch, one slice per block
-# of a persistent grid (the blocks per SM of its occupancy query,
-# :func:`deep_occupancy`, six at its footprint on an H100, times the SMs),
-# and a counter from which the blocks take the half tiles.
+# counted in a register, in one body (csrc/peel.cu's peel_half_tile) that
+# keeps each pixel's first slots and block-list entries in shared memory, up
+# to tiers that csrc/peel.cu fixes (:func:`peel_tiers`), and the rest in a
+# global scratch, one slice per block of a persistent grid (the blocks per
+# SM of the instance's occupancy query, :func:`wide_occupancy` and
+# :func:`deep_occupancy`, times the SMs), with a counter from which the
+# blocks take the half tiles. It is built twice, with the wide instance's
+# tiers up to this many layers and with the deep instance's above, each
+# instance counted apart.
 MAX_WIDE_LAYERS = 96
 
 # Float operations counted from csrc/peel.cu. Per entry (one thread per
@@ -72,9 +72,9 @@ MAX_WIDE_LAYERS = 96
 # (existing-face entry, in-frame pixel) pair: p = d x e2, the determinant,
 # its test and reciprocal, t, u, v and the hit tests (35). Per hit, one
 # charge for every L (32): the 8-slot block list's tie test, order test
-# and two selects per slot; the wide instance's two binary searches (5 + 5
-# compares at L = 32), tie test and swap walk (~L/2 compares) come to as
-# many. The merge of each block's list into the slots is not counted.
+# and two selects per slot (the tiered instances above 16 slots append each
+# hit and build the block's list at its end, mostly by appends: fewer). The
+# merge of each block's list into the slots is not counted.
 # These are the JAX kernel's work, a full scan: the full-scan bound, which
 # does not depend on L.
 OPS_PER_ENTRY = 23
@@ -314,34 +314,40 @@ def peel_instance(num_layers: int) -> int:
 
 def wide_occupancy(num_layers: int) -> dict:
     """The wide instance's resources at ``num_layers`` slots (17 ..
-    ``MAX_WIDE_LAYERS``): registers, static and dynamic shared memory, local
-    (spill) bytes and resident 128-thread blocks (half tiles) per SM."""
-    return _kernels.PEEL.occupancy("peel_wide_occupancy", num_layers)
+    ``MAX_WIDE_LAYERS``; the same at each): registers, static and dynamic
+    shared memory, local (spill) bytes and resident 128-thread blocks (half
+    tiles) per SM."""
+    if not LAYER_INSTANCES[-1] < num_layers <= MAX_WIDE_LAYERS:
+        raise ValueError(f"the wide instance runs 17 to {MAX_WIDE_LAYERS} layers, "
+                         f"not {num_layers}")
+    return _kernels.PEEL.occupancy("peel_tiered_occupancy", num_layers)
 
 
 def deep_occupancy() -> dict:
     """The deep instance's resources, its tiers' dynamic shared memory
     included (the same at every slot count), in the keys of
     :func:`wide_occupancy`."""
-    return _kernels.PEEL.occupancy("peel_deep_occupancy")
+    return _kernels.PEEL.occupancy("peel_tiered_occupancy", MAX_WIDE_LAYERS + 1)
 
 
-def deep_tiers(num_layers: int) -> dict:
-    """The deep instance's tiers, the slots (``slot_tier``) and block-list
-    entries (``list_tier``) of each pixel kept in shared memory, and its
-    global scratch per persistent block at ``num_layers`` (>
-    ``MAX_WIDE_LAYERS``) slots (``scratch_bytes``)."""
-    return _kernels.PEEL.query("peel_deep_tiers", (num_layers,),
+def peel_tiers(num_layers: int) -> dict:
+    """The tiers of the instance that runs ``num_layers`` (> 16) slots, the
+    wide one up to ``MAX_WIDE_LAYERS``, the deep one above: the slots
+    (``slot_tier``) and block-list entries (``list_tier``) of each pixel
+    kept in shared memory, and its global scratch per persistent block
+    (``scratch_bytes``)."""
+    return _kernels.PEEL.query("peel_tiered_tiers", (num_layers,),
                                ("slot_tier", "list_tier", "scratch_bytes"))
 
 
 @functools.lru_cache(maxsize=None)
-def deep_grid(device_index: int) -> int:
-    """The deep instance's persistent blocks on a card: its resident blocks
-    per SM times the SMs."""
+def tiered_grid(device_index: int, deep: bool) -> int:
+    """The persistent blocks of the deep instance (``deep``) or of the wide
+    one on a card: its resident blocks per SM times the SMs."""
     with torch.cuda.device(device_index):
-        per_sm = deep_occupancy()["blocks_per_sm"]
-    return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
+        occ = deep_occupancy() if deep else wide_occupancy(MAX_WIDE_LAYERS)
+    return occ["blocks_per_sm"] * torch.cuda.get_device_properties(
+        device_index).multi_processor_count
 
 
 def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
@@ -404,28 +410,30 @@ def peel_layers(entry_bf, faces, verts, faces_existence, tile_starts,
     P = ctypes.c_void_p
     tile_ptr = P(None if tiles is None else tiles.data_ptr())
     with torch.cuda.device(dev):
-        if inst > MAX_WIDE_LAYERS:
-            grid = min(2 * n_blocks, deep_grid(dev.index))
-            # the blocks' slices, then the kernel's counter of half tiles
-            scratch = torch.empty(grid * deep_tiers(inst)["scratch_bytes"] // 4 + 1,
-                                  dtype=f32, device=dev)
-            err = _kernels.PEEL_DEEP.load()(
+        if inst <= LAYER_INSTANCES[-1]:
+            err = _kernels.PEEL.load().peel_launch(
                 P(entry_bf.data_ptr()), r, P(faces.data_ptr()), P(verts.data_ptr()),
                 P(faces_existence.data_ptr()), f, P(tile_starts.data_ptr()),
                 P(tile_counts.data_ptr()), tile_ptr, n_blocks,
                 P(ray_o_cam.data_ptr()), P(ray_d.data_ptr()), h, w, gx, gy, inst,
-                P(layers.data_ptr()), P(counts.data_ptr()), P(scratch.data_ptr()),
-                grid, _kernels.current_stream(dev),
+                num_layers, P(layers.data_ptr()), P(counts.data_ptr()),
+                _kernels.current_stream(dev),
             )
-            _kernels.PEEL_DEEP.launched(err)
+            _kernels.PEEL.launched(err)
             return layers, counts
-        err = _kernels.PEEL.load().peel_launch(
+        deep = inst > MAX_WIDE_LAYERS
+        instance = _kernels.PEEL_DEEP if deep else _kernels.PEEL_WIDE
+        grid = min(2 * n_blocks, tiered_grid(dev.index, deep))
+        # the blocks' slices, then the kernel's counter of half tiles
+        scratch = torch.empty(grid * peel_tiers(inst)["scratch_bytes"] // 4 + 1, dtype=f32,
+                              device=dev)
+        err = instance.load()(
             P(entry_bf.data_ptr()), r, P(faces.data_ptr()), P(verts.data_ptr()),
             P(faces_existence.data_ptr()), f, P(tile_starts.data_ptr()),
             P(tile_counts.data_ptr()), tile_ptr, n_blocks,
             P(ray_o_cam.data_ptr()), P(ray_d.data_ptr()), h, w, gx, gy, inst,
-            num_layers, P(layers.data_ptr()), P(counts.data_ptr()),
-            _kernels.current_stream(dev),
+            P(layers.data_ptr()), P(counts.data_ptr()), P(scratch.data_ptr()),
+            grid, _kernels.current_stream(dev),
         )
-    (_kernels.PEEL_WIDE if inst > LAYER_INSTANCES[-1] else _kernels.PEEL).launched(err)
+    instance.launched(err)
     return layers, counts

@@ -304,14 +304,16 @@ def test_num_layers_outside_the_kernel_instances_raises():
 
 def test_wide_instance_counts_its_launches_apart():
     """peel.cu's wide instance has a launch count of its own, beside the
-    register instances' (both launched through one C function), as has its
-    deep instance (through a C function of its own); a failed launch raises
-    under its own name."""
+    register instances', as has its deep instance; the two are one body
+    built with two pairs of tiers, launched through one C function (apart
+    from the register instances') that picks them by the slot count; a
+    failed launch raises under its own name."""
     from dmesh2_renderer_tpu_torch.ops import _kernels
 
     assert _kernels.PEEL_WIDE.source == _kernels.PEEL.source
     assert _kernels.PEEL_DEEP.source == _kernels.PEEL.source
-    assert _kernels.PEEL_DEEP.launch == "peel_deep_launch"
+    assert _kernels.PEEL_WIDE.launch == _kernels.PEEL_DEEP.launch == "peel_tiered_launch"
+    assert _kernels.PEEL_WIDE.argtypes == _kernels.PEEL_DEEP.argtypes
     assert _kernels.COUNTED == _kernels.KERNELS + (_kernels.PEEL_WIDE,
                                                    _kernels.PEEL_DEEP)
     before = (_kernels.PEEL.launches, _kernels.PEEL_WIDE.launches)
@@ -620,14 +622,15 @@ def _sheet_stack():
     return a, (np.asarray(want[0]), np.asarray(want[1]))
 
 
-@pytest.mark.parametrize("num_layers", [100, 128])
+@pytest.mark.parametrize("num_layers", [17, 32, 96, 100, 128])
 def test_plain_peel_beyond_96_layers_on_a_sheet_stack(num_layers):
-    """The plain peel at L = 100 and 128 (the deep instance's range on the
-    card) equals the numpy merge of the JAX rule on every pixel and, in its
-    first 16 layers, the JAX kernel at 16 (the prefix property); counts
-    reach L. Exact ties across blocks keep both copies, the earlier
-    block's first (sheet 62: entries 126-127 and 128-129); a tie inside a
-    block keeps one, the larger id (sheet 20: entries 40-43)."""
+    """The plain peel at L = 17, 32 and 96 (the wide instance's range on the
+    card) and 100 and 128 (the deep instance's) equals the numpy merge of
+    the JAX rule on every pixel and, in its first 16 layers, the JAX kernel
+    at 16 (the prefix property); counts reach L. Exact ties across blocks
+    keep both copies, the earlier block's first (sheet 62: entries 126-127
+    and 128-129, layers 62 and 63); a tie inside a block keeps one, the
+    larger id (sheet 20: entries 40-43, layer 20)."""
     a, (want_l16, want_c16) = _sheet_stack()
     _, np_l, np_c = _numpy_peel(a, num_layers, frame=(16, 16))
     args = (*(torch.as_tensor(a[k]) for k in (
@@ -641,15 +644,17 @@ def test_plain_peel_beyond_96_layers_on_a_sheet_stack(num_layers):
     assert (np_c == num_layers).all()
     # pixel (3, 11) lies off both quad diagonals: one triangle per sheet
     sheet = a["faces"][np_l[0, 3, 11], 0] // 4
-    assert (np.diff(sheet) >= 0).all() and int((sheet == 62).sum()) == 2
-    assert int((sheet == 20).sum()) == 1
-    ids = np_l[0, 3, 11][sheet == 62]
-    assert ids[1] == ids[0] + 2 and ids[0] in (126, 127)
+    assert (np.diff(sheet) >= 0).all()
+    assert int((sheet == 20).sum()) == (num_layers > 20)
+    assert int((sheet == 62).sum()) == (2 if num_layers > 63 else 0)
+    if num_layers > 63:
+        ids = np_l[0, 3, 11][sheet == 62]
+        assert ids[1] == ids[0] + 2 and ids[0] in (126, 127)
 
 
 # ---------------------------------------------------------------------------
-# Above MAX_WIDE_LAYERS on several tiles: the contract the kernel's filled
-# count per pixel relies on.
+# Above 16 layers on several tiles: the contract the tiered instances' filled
+# count per pixel and their store walk rely on.
 
 DEEP_FRAME = 32
 
@@ -675,23 +680,27 @@ def _sheet_tiles(half_size):
             ray_d.contiguous(), DEEP_FRAME, DEEP_FRAME), faces
 
 
+TIERED_LAYERS = (17, 32, 96, 97, 128)
+
+
 @pytest.fixture(scope="module")
 def deep_peels():
-    """The plain peel at 97 and 128 layers, once per module, on the sheet
-    stack (half size 5: every ray crosses all 150 sheets, 153 hits) and on
-    smaller sheets (half size 1, whose edges cross the frame: counts vary
-    across pixels). {(scene, L): (args, faces, layers, counts)}."""
+    """The plain peel at 17, 32 and 96 layers (the wide instance's range on
+    the card) and 97 and 128 (the deep instance's), once per module, on the
+    sheet stack (half size 5: every ray crosses all 150 sheets, 153 hits)
+    and on smaller sheets (half size 1, whose edges cross the frame: counts
+    vary across pixels). {(scene, L): (args, faces, layers, counts)}."""
     out = {}
     for scene, half_size in (("stack", 5.0), ("edges", 1.0)):
         args, faces = _sheet_tiles(half_size)
-        for num_layers in (97, 128):
+        for num_layers in TIERED_LAYERS:
             out[scene, num_layers] = (args, faces,
                                       *TP.peel_layers_plain(*args, num_layers))
     return out
 
 
 @pytest.mark.parametrize("scene", ["stack", "edges"])
-@pytest.mark.parametrize("num_layers", [97, 128])
+@pytest.mark.parametrize("num_layers", TIERED_LAYERS)
 def test_plain_peel_counts_its_filled_slots_beyond_96_layers(deep_peels, scene,
                                                              num_layers):
     """The plain peel's contract, which the kernel's count of filled slots
@@ -707,7 +716,8 @@ def test_plain_peel_counts_its_filled_slots_beyond_96_layers(deep_peels, scene,
     else:
         # counts on both sides of any shared-memory tier a kernel may keep
         assert cnt.min() == 0 and cnt.max() == num_layers
-        assert len(np.unique(cnt)) > 20
+        assert len(np.unique(cnt)) > min(20, num_layers // 4)
+        assert ((cnt > 0) & (cnt < num_layers // 2)).any()
 
 
 @pytest.mark.parametrize("scene", ["stack", "edges"])
@@ -732,14 +742,29 @@ def test_plain_peel_at_97_layers_is_a_prefix_of_128(deep_peels, scene):
 
 
 def test_deep_peel_on_cpu_tensors_takes_the_plain_version(deep_peels):
-    """peel_layers on CPU tensors at L = 128 (the deep instance's range on
-    the card) returns the plain version's output and neither builds, loads
-    nor launches a kernel."""
+    """peel_layers on CPU tensors at L = 32 and 128 (the wide and the deep
+    instance's ranges on the card) returns the plain version's output and
+    neither builds, loads nor launches a kernel."""
     from dmesh2_renderer_tpu_torch.ops import _kernels
 
-    args, _, want_l, want_c = deep_peels["edges", 128]
-    before = {k.name: k.launches for k in _kernels.COUNTED}
-    layers, counts = TP.peel_layers(*args, 128)
-    assert {k.name: k.launches for k in _kernels.COUNTED} == before
-    assert _kernels.PEEL._lib is None
-    assert torch.equal(layers, want_l) and torch.equal(counts, want_c)
+    for num_layers in (32, 128):
+        args, _, want_l, want_c = deep_peels["edges", num_layers]
+        before = {k.name: k.launches for k in _kernels.COUNTED}
+        layers, counts = TP.peel_layers(*args, num_layers)
+        assert {k.name: k.launches for k in _kernels.COUNTED} == before
+        assert _kernels.PEEL._lib is None
+        assert torch.equal(layers, want_l) and torch.equal(counts, want_c)
+
+
+@pytest.mark.parametrize("scene", ["stack", "edges"])
+@pytest.mark.parametrize("short,long", [(17, 32), (32, 96), (96, 97)])
+def test_plain_peel_prefix_across_the_wide_range(deep_peels, scene, short, long):
+    """The prefix property inside the wide instance's range and across its
+    switch to the deep instance (96 to 97 layers): the first ``short``
+    layers at ``long`` are the layers at ``short``, the counts the counts
+    capped at ``short``."""
+    _, _, l_short, c_short = deep_peels[scene, short]
+    _, _, l_long, c_long = deep_peels[scene, long]
+    np.testing.assert_array_equal(to_numpy(l_long)[..., :short], to_numpy(l_short))
+    np.testing.assert_array_equal(np.minimum(to_numpy(c_long), short), to_numpy(c_short))
+    assert int((to_numpy(c_long) > short).sum()) > 0
