@@ -1,0 +1,8 @@
+"""``binning_ms.train``: device milliseconds per iteration of the operations
+enqueued inside the port's ``dmesh2/binning`` ranges (``bin_faces``)."""
+
+from bench_port import port_spans
+
+
+def read(run):
+    return port_spans.stage_ms(run, "binning")

@@ -18,8 +18,9 @@ from dmesh2_renderer_tpu_torch.ops.peel import peel_layers
 from dmesh2_renderer_tpu_torch.ops.rasterize import RasterAux, make_rasterizer
 from dmesh2_renderer_tpu_torch.ops.reference import face_depth01
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
+from dmesh2_renderer_tpu_torch.utils.profiling import span
 from dmesh2_renderer_tpu_torch.utils.validate import (
-    check_face_indices, resolve_device, valence_cache, valence_cap,
+    check_face_indices, resolve_device, to_device, valence_cache, valence_cap,
 )
 
 
@@ -50,11 +51,13 @@ def render_partial(
     to one shared window of the full frame.
     """
     config = config or RasterConfig()
-    valence_cache.check(faces, valence_cap(config), len(verts))
-    return render_partial_unchecked(
-        verts, faces, verts_color, faces_opacity, faces_intense, mv, proj,
-        background, width, height, aa_temperature, config, patch_origin,
-        patch_shape, device)
+    with span("render"):
+        with span("validate"):
+            valence_cache.check(faces, valence_cap(config), len(verts))
+        return _render_partial(
+            verts, faces, verts_color, faces_opacity, faces_intense, mv, proj,
+            background, width, height, aa_temperature, config, patch_origin,
+            patch_shape, device)
 
 
 def render_partial_unchecked(
@@ -68,6 +71,16 @@ def render_partial_unchecked(
     points render subsets of it (a depth slab, padded with ``(0, 0, 0)``
     rows, for every view), which the JAX package never checks (there they
     are traced values) and which would cost a host sync and a hash each."""
+    with span("render"):
+        return _render_partial(
+            verts, faces, verts_color, faces_opacity, faces_intense, mv, proj,
+            background, width, height, aa_temperature, config, patch_origin,
+            patch_shape, device)
+
+
+def _render_partial(verts, faces, verts_color, faces_opacity, faces_intense,
+                    mv, proj, background, width, height, aa_temperature,
+                    config, patch_origin, patch_shape, device):
     config = config or RasterConfig()
     if (patch_origin is None) != (patch_shape is None):
         raise ValueError(
@@ -77,24 +90,26 @@ def render_partial_unchecked(
     dev = resolve_device(device)
 
     def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+        return to_device(x, torch.float32, dev, "inputs")
 
-    verts, verts_color, faces_opacity, faces_intense, mv, proj, background = (
-        f32(x) for x in (verts, verts_color, faces_opacity, faces_intense, mv,
-                         proj, background))
-    faces = torch.as_tensor(faces, dtype=torch.int32, device=dev).contiguous()
-    b = mv.shape[0]
-    ray_o, ray_d = G.init_rays(mv, proj, width, height,
-                               origin=patch_origin, shape=patch_shape)
-    verts_ndc, verts_image = G.compute_verts_ndc_image(verts, mv, proj, width, height)
-    aa_verts = G.face_aa_verts_ccw(verts_image, faces)
-    if patch_origin is None:
-        patch_min = torch.zeros((b, 2), dtype=torch.int32, device=dev)
-        pw, ph = width, height
-    else:
-        patch_min = torch.tensor([list(patch_origin)] * b, dtype=torch.int32,
-                                 device=dev)
-        ph, pw = patch_shape
+    with span("prep"):
+        verts, verts_color, faces_opacity, faces_intense, mv, proj, background = (
+            f32(x) for x in (verts, verts_color, faces_opacity, faces_intense, mv,
+                             proj, background))
+        faces = to_device(faces, torch.int32, dev, "inputs").contiguous()
+        b = mv.shape[0]
+        ray_o, ray_d = G.init_rays(mv, proj, width, height,
+                                   origin=patch_origin, shape=patch_shape)
+        verts_ndc, verts_image = G.compute_verts_ndc_image(verts, mv, proj, width,
+                                                           height)
+        aa_verts = G.face_aa_verts_ccw(verts_image, faces)
+        if patch_origin is None:
+            patch_min = torch.zeros((b, 2), dtype=torch.int32, device=dev)
+            pw, ph = width, height
+        else:
+            patch_min = to_device([list(patch_origin)] * b, torch.int32, dev,
+                                  "patch_origins")
+            ph, pw = patch_shape
     rasterize = make_rasterizer(pw, ph, float(aa_temperature), config)
     return rasterize(
         verts, verts_color, faces_opacity, verts_ndc, faces_intense, aa_verts,
@@ -183,33 +198,50 @@ def peel_pipeline(verts, faces, faces_existence, mv, proj, ray_o, ray_d,
     views. Returns (layers (B, H, W, L) int32, counts (B, H, W) int32,
     (num_rendered, num_truncated)).
     """
+    with span("generate"):
+        return peel_stages(verts, faces, faces_existence, mv, proj, ray_o,
+                           ray_d, width, height, num_layers, config, device)
+
+
+def peel_stages(verts, faces, faces_existence, mv, proj, ray_o, ray_d,
+                width: int, height: int, num_layers: int,
+                config: RasterConfig | None = None, device=None):
+    """:func:`peel_pipeline`'s stages, for entry points that open the
+    ``generate`` range themselves."""
     cfg = config or RasterConfig()
     dev = resolve_device(device)
 
     def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+        return to_device(x, torch.float32, dev, "inputs")
 
-    verts, mv, proj, ray_o, ray_d = (f32(x) for x in (verts, mv, proj, ray_o, ray_d))
-    faces = torch.as_tensor(faces, dtype=torch.int32, device=dev).contiguous()
-    check_face_indices(faces, verts.shape[0])
-    exist = (torch.as_tensor(faces_existence, device=dev) > 0).to(torch.int32)
-    b = mv.shape[0]
-    verts_ndc, verts_image = G.compute_verts_ndc_image(verts, mv, proj, width, height)
-    # The CCW screen triangles: face_aa_triangles(...).verts of the JAX
-    # pipeline, without the edge tables it does not read.
-    tris = G.face_aa_verts_ccw(verts_image, faces)
-    _, min_depth, _, alive = face_depth01(verts_ndc, faces)
-    binning = bin_faces(
-        tris, min_depth, alive, torch.zeros((b, 2), dtype=torch.int32, device=dev),
-        width, height, cfg.binning_capacity, cfg.max_tiles_per_face,
-        num_giant_faces=cfg.num_giant_faces, giant_tiles=cfg.giant_tiles,
-    )
-    layers, counts = peel_layers(
-        binning.entry_bf, faces, verts.contiguous(), exist.contiguous(),
-        binning.tile_starts, binning.tile_counts,
-        ray_o[:, 0, 0, :].contiguous(), ray_d.contiguous(), width, height,
-        num_layers,
-    )
+    with span("validate"):
+        faces = to_device(faces, torch.int32, dev, "inputs").contiguous()
+        check_face_indices(faces, len(verts))
+    with span("prep"):
+        verts, mv, proj, ray_o, ray_d = (f32(x) for x in (verts, mv, proj, ray_o,
+                                                          ray_d))
+        exist = (to_device(faces_existence, None, dev, "inputs") > 0).to(torch.int32)
+        b = mv.shape[0]
+        verts_ndc, verts_image = G.compute_verts_ndc_image(verts, mv, proj, width,
+                                                           height)
+        # The CCW screen triangles: face_aa_triangles(...).verts of the JAX
+        # pipeline, without the edge tables it does not read.
+        tris = G.face_aa_verts_ccw(verts_image, faces)
+        _, min_depth, _, alive = face_depth01(verts_ndc, faces)
+    with span("binning"):
+        binning = bin_faces(
+            tris, min_depth, alive,
+            torch.zeros((b, 2), dtype=torch.int32, device=dev), width, height,
+            cfg.binning_capacity, cfg.max_tiles_per_face,
+            num_giant_faces=cfg.num_giant_faces, giant_tiles=cfg.giant_tiles,
+        )
+    with span("peel"):
+        layers, counts = peel_layers(
+            binning.entry_bf, faces, verts.contiguous(), exist.contiguous(),
+            binning.tile_starts, binning.tile_counts,
+            ray_o[:, 0, 0, :].contiguous(), ray_d.contiguous(), width, height,
+            num_layers,
+        )
     return layers, counts, (binning.num_rendered, binning.num_truncated)
 
 
@@ -221,8 +253,10 @@ def generate_layers(verts, faces, faces_existence, mv, proj,
     int32 face ids, -1 padded, counts (B, H, W) int32, (num_rendered,
     num_truncated))."""
     dev = resolve_device(device)
-    mv = torch.as_tensor(mv, dtype=torch.float32, device=dev)
-    proj = torch.as_tensor(proj, dtype=torch.float32, device=dev)
-    ray_o, ray_d = G.init_rays(mv, proj, width, height)
-    return peel_pipeline(verts, faces, faces_existence, mv, proj, ray_o,
-                         ray_d, width, height, num_layers, config, device=dev)
+    with span("generate"):
+        with span("prep"):
+            mv = to_device(mv, torch.float32, dev, "inputs")
+            proj = to_device(proj, torch.float32, dev, "inputs")
+            ray_o, ray_d = G.init_rays(mv, proj, width, height)
+        return peel_stages(verts, faces, faces_existence, mv, proj, ray_o,
+                           ray_d, width, height, num_layers, config, device=dev)

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from dmesh2_renderer_tpu_torch.utils.config import AA_EPS, RAY_NORM_EPS, W_EPS
+from dmesh2_renderer_tpu_torch.utils.profiling import host_sync
 
 
 @contextlib.contextmanager
@@ -60,8 +61,10 @@ def compute_verts_ndc_image(verts, mv, proj, width, height):
     w = torch.where((w >= 0.0) & (w < W_EPS), torch.full_like(w, W_EPS), w)
     w = torch.where((w < 0.0) & (w > -W_EPS), torch.full_like(w, -W_EPS), w)
     verts_ndc = verts_proj[..., :3] / w
-    scale = torch.tensor([width, height], dtype=verts_ndc.dtype,
-                         device=verts_ndc.device)
+    # On the card this copies a host list, which waits for the device.
+    with host_sync("image_scale"):
+        scale = torch.tensor([width, height], dtype=verts_ndc.dtype,
+                             device=verts_ndc.device)
     verts_image = (verts_ndc[..., :2] + 1.0) * 0.5 * scale
     return verts_ndc, verts_image
 

@@ -10,11 +10,12 @@ from __future__ import annotations
 
 import torch
 
-from dmesh2_renderer_tpu_torch.functional import peel_pipeline
+from dmesh2_renderer_tpu_torch.functional import peel_stages
 from dmesh2_renderer_tpu_torch.models.renderer import Renderer
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
+from dmesh2_renderer_tpu_torch.utils.profiling import span
 from dmesh2_renderer_tpu_torch.utils.validate import (
-    check_camera_indices, check_layered_args,
+    check_camera_indices, check_layered_args, to_device,
 )
 
 
@@ -40,17 +41,20 @@ class LayeredRenderer(Renderer):
         render_layers_cnt (B, H, W) int32). ``faces_existence`` is cast to
         int32 first, as in the JAX class: a fractional flag below 1 drops
         the face. ``self.last_aux`` holds (num_rendered, num_truncated)."""
-        check_layered_args(verts, faces, tets, face_tets, tet_faces,
-                           faces_existence)
-        del tets, face_tets, tet_faces  # peel needs no adjacency
-        check_camera_indices(batch_mvp_idx, self.num_batch)
         dev = self.device
-        idx = torch.as_tensor(batch_mvp_idx, dtype=torch.int64, device=dev)
-        exist = torch.as_tensor(faces_existence, device=dev).to(torch.int32)
-        layers, counts, aux = peel_pipeline(
-            verts, faces, exist, self.mv[idx], self.proj[idx], self.ray_o[idx],
-            self.ray_d[idx], self.width, self.height, int(num_layers),
-            self.config, device=dev,
-        )
+        with span("generate"):
+            with span("validate"):
+                check_layered_args(verts, faces, tets, face_tets, tet_faces,
+                                   faces_existence)
+                check_camera_indices(batch_mvp_idx, self.num_batch)
+            del tets, face_tets, tet_faces  # peel needs no adjacency
+            with span("prep"):
+                idx = to_device(batch_mvp_idx, torch.int64, dev, "view_indices")
+                exist = to_device(faces_existence, None, dev, "inputs").to(torch.int32)
+                views = (self.mv[idx], self.proj[idx], self.ray_o[idx], self.ray_d[idx])
+            layers, counts, aux = peel_stages(
+                verts, faces, exist, *views, self.width, self.height,
+                int(num_layers), self.config, device=dev,
+            )
         self.last_aux = aux
         return layers, counts

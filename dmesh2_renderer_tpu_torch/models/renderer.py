@@ -25,11 +25,13 @@ import torch
 from dmesh2_renderer_tpu_torch import geometry as G
 from dmesh2_renderer_tpu_torch.ops.rasterize import make_rasterizer
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
+from dmesh2_renderer_tpu_torch.utils.profiling import host_sync, span
 from dmesh2_renderer_tpu_torch.utils.validate import (
     check_cameras,
     check_patch_windows,
     check_render_args,
     resolve_device,
+    to_device,
     valence_cache,
     valence_cap,
 )
@@ -73,56 +75,70 @@ class Renderer:
         larger = nearer)."""
         dev = self.device
         pw, ph = int(patch_width), int(patch_height)
-        check_patch_windows(batch_mvp_idx, batch_patch_min, pw, ph,
-                            self.num_batch, self.width, self.height)
-        batch_mvp_idx = torch.as_tensor(batch_mvp_idx, dtype=torch.int64, device=dev)
-        batch_patch_min = torch.as_tensor(batch_patch_min, dtype=torch.int32,
-                                          device=dev)
-        check_render_args(
-            verts, faces, verts_color, faces_opacity, faces_intense,
-            background, batch_mvp_idx.shape[0], aa_temperature,
-        )
-        # Valence and vertex-index check on the caller's own object, before
-        # conversion, so the identity fast path holds across calls. Static
-        # mode checks the indices only, as the JAX class skips the guard.
-        valence_cache.check(faces, valence_cap(self.config), len(verts))
 
         def f32(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+            return to_device(x, torch.float32, dev, "inputs")
 
-        verts = f32(verts)
-        faces = torch.as_tensor(faces, dtype=torch.int32, device=dev).contiguous()
-
-        b_mv = self.mv[batch_mvp_idx]
-        b_proj = self.proj[batch_mvp_idx]
-        verts_ndc, verts_image = G.compute_verts_ndc_image(
-            verts, b_mv, b_proj, self.width, self.height)
-        aa_verts = G.face_aa_verts_ccw(verts_image, faces)
-        ray_o, ray_d = G.select_rays(self.ray_o, self.ray_d, batch_mvp_idx,
-                                     batch_patch_min, pw, ph)
-        rasterize = make_rasterizer(pw, ph, float(aa_temperature), self.config)
-        color, depth_raw, _final_t, aux = rasterize(
-            verts, f32(verts_color), f32(faces_opacity), verts_ndc,
-            f32(faces_intense), aa_verts, faces, f32(background),
-            batch_patch_min, ray_o[:, 0, 0, :], ray_d,
-        )
-        self.last_aux = aux
-        if self.config.warn_on_overflow:
-            truncated = int(aux.num_truncated)
-            if truncated > 0:
-                warnings.warn(
-                    f"binning truncated {truncated} of "
-                    f"{int(aux.num_rendered)} face instances; the rendered "
-                    "image is missing geometry. Raise "
-                    "RasterConfig.binning_capacity (or max_tiles_per_face "
-                    "for faces spanning many tiles).",
-                    RuntimeWarning,
-                    stacklevel=2,
+        with span("render"):
+            with span("validate"):
+                check_patch_windows(batch_mvp_idx, batch_patch_min, pw, ph,
+                                    self.num_batch, self.width, self.height)
+                check_render_args(
+                    verts, faces, verts_color, faces_opacity, faces_intense,
+                    background, len(batch_mvp_idx), aa_temperature,
                 )
-            cap2 = self.config.grad_compact_capacity
-            if cap2 and int(aux.num_grad_contributing) > cap2:
+                # Valence and vertex-index check on the caller's own object,
+                # before conversion, so the identity fast path holds across
+                # calls. Static mode checks the indices only, as the JAX
+                # class skips the guard.
+                valence_cache.check(faces, valence_cap(self.config), len(verts))
+            with span("prep"):
+                batch_mvp_idx = to_device(batch_mvp_idx, torch.int64, dev,
+                                          "view_indices")
+                batch_patch_min = to_device(batch_patch_min, torch.int32, dev,
+                                            "patch_origins")
+                verts = f32(verts)
+                faces = to_device(faces, torch.int32, dev, "inputs").contiguous()
+                b_mv = self.mv[batch_mvp_idx]
+                b_proj = self.proj[batch_mvp_idx]
+                verts_ndc, verts_image = G.compute_verts_ndc_image(
+                    verts, b_mv, b_proj, self.width, self.height)
+                aa_verts = G.face_aa_verts_ccw(verts_image, faces)
+                ray_o, ray_d = G.select_rays(self.ray_o, self.ray_d, batch_mvp_idx,
+                                             batch_patch_min, pw, ph)
+                args = (verts, f32(verts_color), f32(faces_opacity), verts_ndc,
+                        f32(faces_intense), aa_verts, faces, f32(background),
+                        batch_patch_min, ray_o[:, 0, 0, :], ray_d)
+            rasterize = make_rasterizer(pw, ph, float(aa_temperature), self.config)
+            color, depth_raw, _final_t, aux = rasterize(*args)
+            self.last_aux = aux
+            if self.config.warn_on_overflow:
+                self._warn_on_overflow(aux)
+            return color, 1.0 - (depth_raw + 1.0) / 2.0
+
+    __call__ = forward
+
+    def _warn_on_overflow(self, aux):
+        with host_sync("overflow_check"):
+            truncated = int(aux.num_truncated)
+        if truncated > 0:
+            with host_sync("overflow_check"):
+                rendered = int(aux.num_rendered)
+            warnings.warn(
+                f"binning truncated {truncated} of {rendered} face instances; "
+                "the rendered image is missing geometry. Raise "
+                "RasterConfig.binning_capacity (or max_tiles_per_face "
+                "for faces spanning many tiles).",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        cap2 = self.config.grad_compact_capacity
+        if cap2:
+            with host_sync("overflow_check"):
+                contributing = int(aux.num_grad_contributing)
+            if contributing > cap2:
                 warnings.warn(
-                    f"{int(aux.num_grad_contributing)} entries contribute "
+                    f"{contributing} entries contribute "
                     f"gradients but grad_compact_capacity={cap2}. This "
                     "backward reduces every contributing entry, so its "
                     "gradients stay right; the JAX package's backward would "
@@ -130,8 +146,5 @@ class Renderer:
                     "gradients. Raise RasterConfig.grad_compact_capacity to "
                     "keep the config portable.",
                     RuntimeWarning,
-                    stacklevel=2,
+                    stacklevel=3,
                 )
-        return color, 1.0 - (depth_raw + 1.0) / 2.0
-
-    __call__ = forward

@@ -38,6 +38,7 @@ from dmesh2_renderer_tpu_torch.ops.composite_fwd import (
 from dmesh2_renderer_tpu_torch.utils.config import (
     FACE_RECORD_WIDTH, GRAD_RECORD_WIDTH, T_EPS,
 )
+from dmesh2_renderer_tpu_torch.utils.profiling import host_sync
 
 # Columns of a gradient record that carry values (the rest are zero).
 GRAD_COLUMNS = 29
@@ -343,7 +344,8 @@ def scatter_entry_grads(grad_records, entry_bf, faces, n_verts: int,
     valid = entry_bf < bf
     if keep is not None:
         valid = valid & keep
-    rows = valid.nonzero().squeeze(1)
+    with host_sync("scatter_rows"):
+        rows = valid.nonzero().squeeze(1)
     d_face = torch.zeros((bf, GRAD_COLUMNS), dtype=torch.float32,
                          device=grad_records.device)
     d_face.index_add_(0, entry_bf[rows].long(), grad_records[rows, :GRAD_COLUMNS])

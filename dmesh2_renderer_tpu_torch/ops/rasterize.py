@@ -26,6 +26,7 @@ from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
 )
 from dmesh2_renderer_tpu_torch.ops.composite_fwd import composite_forward
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
+from dmesh2_renderer_tpu_torch.utils.profiling import span
 
 
 class RasterAux(NamedTuple):
@@ -43,17 +44,20 @@ def build_stream(verts, verts_color, faces_opacity, verts_ndc, faces_intense,
 
     Returns (Binning, records (R, 32) f32).
     """
-    depth01, _, _, alive = ref_ops.face_depth01(verts_ndc, faces)
-    binning: Binning = bin_faces(
-        aa_face_verts, depth01, alive, patch_min, patch_width, patch_height,
-        config.binning_capacity, config.max_tiles_per_face,
-        num_giant_faces=config.num_giant_faces,
-        giant_tiles=config.giant_tiles,
-        exact_tile_cull=config.exact_tile_cull,
-    )
-    records = pack_stream(binning.entry_bf, faces, verts, verts_color,
-                          verts_ndc, faces_opacity, faces_intense,
-                          aa_face_verts)
+    with span("prep"):
+        depth01, _, _, alive = ref_ops.face_depth01(verts_ndc, faces)
+    with span("binning"):
+        binning: Binning = bin_faces(
+            aa_face_verts, depth01, alive, patch_min, patch_width, patch_height,
+            config.binning_capacity, config.max_tiles_per_face,
+            num_giant_faces=config.num_giant_faces,
+            giant_tiles=config.giant_tiles,
+            exact_tile_cull=config.exact_tile_cull,
+        )
+    with span("pack"):
+        records = pack_stream(binning.entry_bf, faces, verts, verts_color,
+                              verts_ndc, faces_opacity, faces_intense,
+                              aa_face_verts)
     return binning, records
 
 
@@ -74,12 +78,13 @@ class Rasterize(torch.autograd.Function):
             verts, verts_color, faces_opacity, verts_ndc, faces_intense,
             aa_face_verts, faces, patch_min, patch_width, patch_height, config,
         )
-        color, depth, final_t, prev_t, _, nc_tile = composite_forward(
-            records, binning.tile_starts, binning.tile_counts, ray_o_cam,
-            ray_d, background, patch_min, patch_width, patch_height, tau,
-        )
-        n_contrib_total = torch.minimum(
-            binning.tile_counts, torch.clamp(nc_tile, min=0)).sum()
+        with span("fwd_kernel"):
+            color, depth, final_t, prev_t, _, nc_tile = composite_forward(
+                records, binning.tile_starts, binning.tile_counts, ray_o_cam,
+                ray_d, background, patch_min, patch_width, patch_height, tau,
+            )
+            n_contrib_total = torch.minimum(
+                binning.tile_counts, torch.clamp(nc_tile, min=0)).sum()
         ctx.save_for_backward(
             records, binning.entry_bf, binning.tile_starts, binning.tile_counts,
             nc_tile, color, depth, final_t, prev_t, faces, background,
@@ -100,18 +105,24 @@ class Rasterize(torch.autograd.Function):
         def cotangent(g, like):
             return torch.zeros_like(like) if g is None else g.contiguous()
 
-        grad_records = composite_backward(
-            records, starts, counts, nc_tile, ray_o_cam, ray_d, background,
-            patch_min, color, depth, final_t, prev_t,
-            cotangent(g_color, color), cotangent(g_depth, depth),
-            cotangent(g_final_t, final_t), patch_width, patch_height, tau,
-        )
-        keep, _ = contributing_mask(starts, counts, nc_tile, entry_bf.shape[0])
-        d_verts, d_vcolor, d_op, d_vndc_z, d_int, d_aa = scatter_entry_grads(
-            grad_records, entry_bf, faces, n_verts, ndc_shape[0], keep)
-        # NDC x/y reach the loss only through aa_face_verts.
-        d_vndc = d_vndc_z.new_zeros(ndc_shape)
-        d_vndc[..., 2] = d_vndc_z
+        with span("backward"):
+            with span("bwd_kernel"):
+                grad_records = composite_backward(
+                    records, starts, counts, nc_tile, ray_o_cam, ray_d,
+                    background, patch_min, color, depth, final_t, prev_t,
+                    cotangent(g_color, color), cotangent(g_depth, depth),
+                    cotangent(g_final_t, final_t), patch_width, patch_height,
+                    tau,
+                )
+            with span("scatter"):
+                keep, _ = contributing_mask(starts, counts, nc_tile,
+                                            entry_bf.shape[0])
+                d_verts, d_vcolor, d_op, d_vndc_z, d_int, d_aa = \
+                    scatter_entry_grads(grad_records, entry_bf, faces, n_verts,
+                                        ndc_shape[0], keep)
+                # NDC x/y reach the loss only through aa_face_verts.
+                d_vndc = d_vndc_z.new_zeros(ndc_shape)
+                d_vndc[..., 2] = d_vndc_z
         return (d_verts, d_vcolor, d_op, d_vndc, d_int, d_aa,
                 None, None, None, None, None, None, None, None, None)
 

@@ -1,24 +1,86 @@
-"""Per-stage timing / observability for the render pipeline.
+"""Observability of the render pipeline: profiler ranges, host-sync counts
+and per-stage timing.
 
-Port of ``dmesh2_renderer_tpu/utils/profiling.py``: :func:`profile_render`
-runs every pipeline stage in isolation on the caller's actual scene, each
-through the port's own function for that stage, and returns a stage ->
-milliseconds mapping with the same keys as the JAX package, cross-checked
-against the end-to-end forward and training-step times so that unattributed
-overhead (host work, launches, autograd bookkeeping) is visible.
+The pipeline's stages have one set of names, used both as the keys of
+:func:`profile_render` and as the names of the profiler ranges that
+:func:`span` opens inside the entry points: ``prep`` (projection, the AA
+corners, ``face_depth01``, the ray selection and the camera gathers),
+``binning`` (``bin_faces``), ``pack`` (``pack_stream``), ``fwd_kernel``
+(``composite_forward``), ``bwd_kernel`` (``composite_backward``),
+``scatter`` (``contributing_mask`` and ``scatter_entry_grads``) and, in the
+depth peel, ``peel`` (``peel_layers``). Around them are the roots
+``render`` (``Renderer.forward``, ``functional.render_partial`` and
+``render_partial_unchecked``),
+``generate`` (``LayeredRenderer.generate``, ``functional.generate_layers``,
+``peel_pipeline``) and ``backward`` (the autograd backward, on autograd's
+thread), and ``validate`` (argument checks and the valence cache).
 
-On the card each stage is timed with CUDA events around ``iters`` calls
-after one warm-up call; on the CPU with the host clock.
+:func:`span` costs one global read while no ``torch.profiler`` records;
+under one it opens ``record_function("dmesh2/<name>")``, so the ranges sit
+on the profiler's own clock beside the CUDA activity it traces. There is no
+switch: a profile of any caller shows them. :func:`host_sync` marks each
+point where the host waits for the device; it counts every pass in a plain
+dict, profiler or not, and under a profiler opens ``dmesh2/sync/<site>``.
+:func:`counters` reads those counts with the kernels' launch counts.
+
+:func:`profile_render`, a port of ``dmesh2_renderer_tpu/utils/profiling.py``,
+runs every stage in isolation on the caller's actual scene, each through the
+port's own function for that stage, and returns a stage -> milliseconds
+mapping, cross-checked against the end-to-end forward and training-step
+times so that unattributed overhead (host work, launches, autograd
+bookkeeping) is visible. On the card each stage is timed with CUDA events
+around ``iters`` calls after one warm-up call; on the CPU with the host
+clock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+from collections import defaultdict
 from typing import Callable
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-from dmesh2_renderer_tpu_torch.utils.validate import resolve_device
+from dmesh2_renderer_tpu_torch.ops import _kernels
+
+_NULL = contextlib.nullcontext()
+# Passes through each host-sync site, by site.
+_syncs = defaultdict(int)
+
+
+def span(name: str):
+    """The profiler range ``dmesh2/<name>`` while a ``torch.profiler``
+    records; otherwise a shared context that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _autograd_profiler.record_function("dmesh2/" + name)
+
+
+def host_sync(site: str):
+    """Count one pass through the host-sync site ``site`` (the host waits
+    for the device there); under a profiler, also the range
+    ``dmesh2/sync/<site>``."""
+    _syncs[site] += 1
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _autograd_profiler.record_function("dmesh2/sync/" + site)
+
+
+def counters() -> dict:
+    """``{"syncs": {site: passes}, "launches": {kernel: launches}}``: the
+    host-sync counts and every kernel's ``launches``, since the process
+    started or the last :func:`reset_counters`."""
+    return {"syncs": dict(_syncs),
+            "launches": {k.name: k.launches for k in _kernels.COUNTED}}
+
+
+def reset_counters() -> None:
+    """Zero the host-sync and the launch counts."""
+    _syncs.clear()
+    for k in _kernels.COUNTED:
+        k.launches = 0
 
 
 def time_fn(fn: Callable, *args, iters: int = 5) -> tuple:
@@ -92,6 +154,7 @@ def profile_render(
     from dmesh2_renderer_tpu_torch.ops.composite_fwd import composite_forward
     from dmesh2_renderer_tpu_torch.ops.rasterize import build_stream
     from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
+    from dmesh2_renderer_tpu_torch.utils.validate import resolve_device
 
     cfg = config or RasterConfig()
     tau = float(aa_temperature)

@@ -13,15 +13,34 @@ import weakref
 import numpy as np
 import torch
 
+from dmesh2_renderer_tpu_torch.utils.profiling import host_sync
+
 
 def _shape(x):
     return tuple(getattr(x, "shape", ()))
 
 
-def _host_array(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
+def _host_array(x, site: str) -> np.ndarray:
+    """``x`` as a numpy array; copying a device tensor to the host waits
+    for the device, counted as host sync ``site``."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    if x.device.type == "cpu":
+        return x.detach().numpy()
+    with host_sync(site):
         return x.detach().cpu().numpy()
-    return np.asarray(x)
+
+
+def to_device(x, dtype, device: torch.device, site: str) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype=dtype, device=device)``. Data that is not
+    already a tensor of ``device``'s type is copied, and a copy to or from
+    the card waits for everything queued on the device: counted as host
+    sync ``site`` (on the CPU too, where the same call on the card would
+    wait)."""
+    if isinstance(x, torch.Tensor) and x.device.type == device.type:
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    with host_sync(site):
+        return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 def check_vertex_valence(faces, max_vertex_valence: int | None,
@@ -38,11 +57,11 @@ def check_vertex_valence(faces, max_vertex_valence: int | None,
     package's valence table is exact for any valence). Raises ValueError on
     violation; returns True.
     """
-    f = _host_array(faces)
+    f = _host_array(faces, "valence")
     if f.size == 0:
         return True
     if num_verts is not None:
-        check_face_indices(torch.as_tensor(f), num_verts)
+        _check_index_range(int(f.min()), int(f.max()), num_verts)
     if max_vertex_valence is None:
         return True
     val = int(np.bincount(f.ravel()).max())
@@ -76,7 +95,7 @@ class _ValenceCache:
         ref = self._by_id.get(idkey)
         if ref is not None and ref() is faces:
             return True
-        f = _host_array(faces)
+        f = _host_array(faces, "valence")
         digest = (f.shape, max_vertex_valence, num_verts,
                   hashlib.sha1(np.ascontiguousarray(f).tobytes()).hexdigest())
         if digest not in self._digests:
@@ -163,7 +182,12 @@ def check_face_indices(faces: torch.Tensor, num_verts: int) -> None:
     tensor's own device (one host sync)."""
     if faces.numel() == 0:
         return
-    lo, hi = torch.stack(torch.aminmax(faces)).tolist()
+    with host_sync("face_indices"):
+        lo, hi = torch.stack(torch.aminmax(faces)).tolist()
+    _check_index_range(lo, hi, num_verts)
+
+
+def _check_index_range(lo: int, hi: int, num_verts: int) -> None:
     if lo < 0 or hi >= num_verts:
         raise ValueError(
             f"faces index vertices in [{lo}, {hi}], outside [0, {num_verts})")
@@ -196,7 +220,7 @@ def check_camera_indices(batch_mvp_idx, num_cameras: int) -> np.ndarray:
     """Every view's camera index must select one of the cameras: the rays
     and matrices are gathered through it. Returns the indices as a flat
     host array."""
-    idx = _host_array(batch_mvp_idx).reshape(-1)
+    idx = _host_array(batch_mvp_idx, "view_indices").reshape(-1)
     if idx.size and (idx.min() < 0 or idx.max() >= num_cameras):
         raise ValueError(
             f"batch_mvp_idx must index the {num_cameras} cameras, got {idx.tolist()}")
@@ -209,7 +233,7 @@ def check_patch_windows(batch_mvp_idx, batch_patch_min, patch_width: int,
     """Every view's camera index and patch window must lie in the frame:
     the rays of each window are gathered from the full-frame ray maps."""
     idx = check_camera_indices(batch_mvp_idx, num_cameras)
-    pm = _host_array(batch_patch_min)
+    pm = _host_array(batch_patch_min, "patch_origins")
     if pm.shape != (idx.shape[0], 2):
         raise ValueError(
             f"batch_patch_min must be (B, 2) = ({idx.shape[0]}, 2), got {pm.shape}")
