@@ -76,6 +76,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    of the backward's entry group) at tau 0, 0.5 and 1: the forward bit for
    bit, the backward within the phase-2 tolerances and with identical bits
    on two runs.
+2e. The binning's emission grid (``csrc/bin_emit.cu``) against its plain
+   version (``emission_keys_plain``) on the card, bit for bit: keys,
+   payloads, the three counts, the bit split and ``giant_ids``, then the
+   whole ``Binning`` of ``bin_faces`` (the kernel's against the plain
+   version's). Inputs: the binning arguments that ``Renderer.forward`` and
+   ``LayeredRenderer.generate`` pass on the benchmark's two scenes at full
+   size (``bench_port/configs``: the 1M-triangle soup at 1080p on three
+   seeds, with the cull and 88-tile giant rows; tet_grid(32) in 2 views,
+   32-tile giant rows, no cull), the four cases of
+   ``tests/test_torch_binning.py`` (rect only, cull + giant, giant
+   overflow, capacity overflow), a 2x2-tile grid whose keys keep 28 depth
+   bits with depths at exactly 0 and 1, and screen triangles leaving a
+   ragged frame on every side, one patch off the origin. Then each
+   launch's device time (torch.profiler) beside its byte bound (keys and
+   payloads written, faces read), and ``emission_keys`` and ``bin_faces``
+   timed against their plain versions.
 3. The main path at full size: one training step, ``Renderer.forward`` on
    the 1M-triangle soup at 1920x1080 (the JAX package's headline scene) and
    ``loss.backward()`` of ``color.sum() + depth.sum()``, with every kernel
@@ -249,15 +265,17 @@ REPLACES = {
     "peel_wide": "dmesh2_renderer_tpu/ops/peel.py:84",
     "peel_deep": "dmesh2_renderer_tpu/ops/peel.py:84",
     "quad_map": "benchmarks/micro_vpu.py:34",
+    # No Pallas kernel: the JAX package's emission grid is XLA ops.
+    "bin_emit": "dmesh2_renderer_tpu/ops/binning.py:184",
 }
 # The kernels of each main path: the training step (and the sharded ones),
 # a forward, the layered peel at 8 layers (the register instances) and the
 # sharded peel at 32 (the wide one) and 128 (the deep one).
-TRAINING_KERNELS = ("pack_stream", "composite_fwd", "composite_bwd")
-FORWARD_KERNELS = ("pack_stream", "composite_fwd")
-LAYERED_KERNELS = ("peel",)
-SHARDED_KERNELS = ("peel_wide",)
-DEEP_KERNELS = ("peel_deep",)
+TRAINING_KERNELS = ("bin_emit", "pack_stream", "composite_fwd", "composite_bwd")
+FORWARD_KERNELS = ("bin_emit", "pack_stream", "composite_fwd")
+LAYERED_KERNELS = ("bin_emit", "peel")
+SHARDED_KERNELS = ("bin_emit", "peel_wide")
+DEEP_KERNELS = ("bin_emit", "peel_deep")
 CALIBRATION_KERNELS = ("quad_map",)
 
 # composite_bwd vs its plain version, per gradient-record column, times
@@ -388,6 +406,11 @@ class Sizes:
     # then resumed for fit_resume_steps.
     fit_steps: int = 60
     fit_resume_steps: int = 10
+    # Phase 2e: the benchmark's soup drawn from these seeds (the tet grid's
+    # binning is the same for every seed: it bins every face), and the
+    # launches timed per scene.
+    bin_seeds: tuple = (1, 2718281828, 3141592653)
+    bin_reps: int = 20
 
 
 def nvidia_smi_line() -> str:
@@ -417,6 +440,24 @@ def time_ms(fn, reps: int, warmup: int = 1) -> tuple[float, list[float]]:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), times
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn()``: ``reps`` calls queued behind
+    a spin kernel (``torch.cuda._sleep``, ~10 ms), so that the card runs
+    them back to back between two events and the host's time to launch
+    them drops out; after one warm-up call."""
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def timed_once(fn):
@@ -854,6 +895,249 @@ def phase_stress(dev, sz: Sizes, report):
         raise AssertionError(f"stress scene misses a case: {ragged} ragged prefixes "
                              f"longer than a chunk, {idle} idle entries, {stopped} "
                              "stopped pixels")
+
+
+# tests/test_torch_binning.py's CASES: bin_faces' keywords after the four
+# positional sizes, on icosphere(1) in 2 views at 48x40, patches at (0, 0)
+# and (5, 3).
+BIN_CASES = {
+    "rect": dict(capacity=2048, max_tiles_per_face=64, num_giant_faces=0),
+    "cull_giant": dict(capacity=2048, max_tiles_per_face=2, num_giant_faces=160,
+                       giant_tiles=None, exact_tile_cull=True),
+    "giant_overflow": dict(capacity=2048, max_tiles_per_face=1, num_giant_faces=8,
+                           giant_tiles=3),
+    "capacity_overflow": dict(capacity=100, max_tiles_per_face=4, num_giant_faces=4,
+                              exact_tile_cull=True),
+}
+
+
+@contextlib.contextmanager
+def captured_binning(module):
+    """Record the arguments of each ``bin_faces`` call made through
+    ``module`` (``ops/rasterize.py``, ``functional.py``): a list of
+    (positional args, keywords)."""
+    calls = []
+    original = module.bin_faces
+
+    def call(*args, **kwargs):
+        calls.append((args, kwargs))
+        return original(*args, **kwargs)
+
+    module.bin_faces = call
+    try:
+        yield calls
+    finally:
+        module.bin_faces = original
+
+
+def bench_scene(name, seed, dev):
+    """The benchmark's scene of configuration ``name`` at ``seed``, and the
+    configuration (``bench_port/configs/<name>.json``)."""
+    from bench_port.scene import build_scene
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "bench_port", "configs", f"{name}.json")) as fh:
+        config = json.load(fh)
+    return build_scene(config, seed, dev), config
+
+
+@contextlib.contextmanager
+def plain_emission():
+    """``bin_faces`` over ``emission_keys_plain``, on the card too."""
+    from dmesh2_renderer_tpu_torch.ops import binning as TB
+
+    kernel = TB.emission_keys
+    TB.emission_keys = TB.emission_keys_plain
+    try:
+        yield
+    finally:
+        TB.emission_keys = kernel
+
+
+def compare_emission(args, kwargs, label):
+    """``emission_keys`` (the kernel) against ``emission_keys_plain`` and
+    ``bin_faces`` against itself over the plain emission, bit for bit, on
+    ``bin_faces``' arguments; raises on any difference. Returns the kernel's
+    EmissionKeys and the emission_keys arguments."""
+    from dmesh2_renderer_tpu_torch.ops import binning as TB
+
+    aa, depth01, alive, patch_min, pw, ph, capacity, kt = args
+    em_args = (aa, depth01, alive, patch_min, pw, ph, -(-capacity // 128) * 128, kt)
+    em = TB.emission_keys(*em_args, **kwargs)
+    plain = TB.emission_keys_plain(*em_args, **kwargs)
+    got = TB.bin_faces(*args, **kwargs)
+    with plain_emission():
+        want = TB.bin_faces(*args, **kwargs)
+    bad = [name for name in em._fields
+           if not (torch.equal(getattr(em, name), getattr(plain, name))
+                   if isinstance(getattr(em, name), torch.Tensor)
+                   else getattr(em, name) == getattr(plain, name))]
+    bad += [f"Binning.{name}" for name in got._fields
+            if not torch.equal(getattr(got, name), getattr(want, name))]
+    slots = em.keys.numel()
+    emitted = int((em.keys != TB.SENTINEL).sum())
+    print(f"  {label}: {slots} slots, rendered {int(em.num_rendered)}, emitted "
+          f"{int(em.num_emitted)} ({emitted} keys), culled {int(em.num_culled)}, "
+          f"truncated {int(got.num_truncated)}, giant rows {em.giant_ids.numel()} "
+          f"({int((em.giant_ids < depth01.numel()).sum())} used), bits_d {em.bits_d}: "
+          + ("equal bit for bit" if not bad else f"DIFFER in {bad}"))
+    if bad:
+        raise AssertionError(f"bin_emit differs from its plain version ({label}): {bad}")
+    if emitted != int(em.num_emitted):
+        raise AssertionError(f"{label}: {emitted} keys but num_emitted {int(em.num_emitted)}")
+    return em, em_args
+
+
+def screen_soup(rng, b, f, lo, hi, size, dev):
+    """Screen triangles (B, F, 3, 2): centres uniform in [lo, hi] (per axis),
+    corner offsets normal at ``size`` pixels."""
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    centres = rng.uniform(lo, hi, size=(b, f, 1, 2)).astype(np.float32)
+    offsets = (rng.normal(size=(b, f, 3, 2)) * size).astype(np.float32)
+    return torch.as_tensor(centres + offsets, device=dev)
+
+
+def bin_emit_launch_ms(em_args, kwargs, reps):
+    """Each bin_emit launch of one ``emission_keys`` call (the dense grid,
+    then the giant rows), replayed ``reps`` times back to back on the card:
+    [(device ms per launch, its byte bound in ms, bytes)]. A replay adds to
+    the same counts and rewrites the same buffers."""
+    from dmesh2_renderer_tpu_torch.ops import binning as TB
+
+    launches = []
+    original = TB._bin_emit
+
+    def record(*args, **kw):
+        launches.append((args, kw))
+        return original(*args, **kw)
+
+    TB._bin_emit = record
+    try:
+        TB.emission_keys(*em_args, **kwargs)
+    finally:
+        TB._bin_emit = original
+    out = []
+    for args, kw in launches:
+        bf, rows, cols = args[5], kw["rows"], kw["cols"]
+        if kw.get("giant") is None:
+            written = (rows * cols + kw["pad"][1]) * 8 + (bf * 4 if kw["select"] is not None else 0)
+            read = bf * 29 + args[3].numel() * 4        # corners, depth, alive; origins
+        else:
+            written = rows * cols * 8 + rows * 4        # keys, payloads; giant_ids
+            read = rows * (12 + 29)                      # sorted key and id; the face
+        ms = queued_ms(lambda: original(*args, **kw), reps)
+        out.append((ms, (written + read) / HBM_BYTES_PER_S * 1e3, written + read))
+    return out
+
+
+def phase_bin_emit(dev, sz: Sizes, report):
+    """csrc/bin_emit.cu against emission_keys_plain, bit for bit (module
+    docstring, 2e)."""
+    from dmesh2_renderer_tpu_torch import LayeredRenderer, RasterConfig, Renderer
+    from dmesh2_renderer_tpu_torch import functional
+    from dmesh2_renderer_tpu_torch import geometry as G
+    from dmesh2_renderer_tpu_torch.ops import binning as TB
+    from dmesh2_renderer_tpu_torch.ops import rasterize
+    from dmesh2_renderer_tpu_torch.ops.reference import face_depth01
+    from dmesh2_renderer_tpu_torch.utils.meshes import icosphere, orbit_cameras
+
+    print("phase 2e: bin_emit (the emission grid) against emission_keys_plain")
+    timed = {}
+    for seed in sz.bin_seeds:
+        scene, config = bench_scene("soup1m_1080p", seed, dev)
+        w, h = int(config["width"]), int(config["height"])
+        renderer = Renderer(scene.mv, scene.proj, w, h, device=dev,
+                            config=RasterConfig(**config["raster"]))
+        with torch.no_grad(), captured_binning(rasterize) as calls:
+            renderer.forward(list(range(scene.views)), [[0, 0]] * scene.views, w, h,
+                             scene.verts, scene.faces, scene.verts_color, scene.faces_opacity,
+                             scene.faces_intense, scene.background,
+                             float(config["aa_temperature"]))
+        args, kwargs = calls[-1]
+        em, em_args = compare_emission(args, kwargs, f"soup1m_1080p seed {seed}")
+        timed.setdefault("soup1m_1080p", (em_args, kwargs, em))
+        del renderer, scene, calls, args, em
+    scene, config = bench_scene("tetgrid32_1080p", sz.bin_seeds[-1], dev)
+    w, h = int(config["width"]), int(config["height"])
+    layered = LayeredRenderer(scene.mv, scene.proj, w, h, device=dev,
+                              config=RasterConfig(**config["raster"]))
+    with captured_binning(functional) as calls:
+        layered.generate(list(range(scene.views)), scene.verts, scene.faces, scene.tets,
+                         scene.face_tets, scene.tet_faces, scene.exist, sz.layered_layers)
+    args, kwargs = calls[-1]
+    em, em_args = compare_emission(args, kwargs, "tetgrid32_1080p")
+    timed["tetgrid32_1080p"] = (em_args, kwargs, em)
+    del layered, scene, calls, args, em
+
+    # tests/test_torch_binning.py's cases.
+    verts, faces = (torch.as_tensor(a, device=dev) for a in icosphere(1))
+    mv, proj = (torch.as_tensor(a, device=dev) for a in orbit_cameras(2))
+    verts_ndc, verts_image = G.compute_verts_ndc_image(verts, mv, proj, 48, 40)
+    aa = G.face_aa_verts_ccw(verts_image, faces)
+    depth01, _, _, alive = face_depth01(verts_ndc, faces)
+    pm = torch.tensor([[0, 0], [5, 3]], dtype=torch.int32, device=dev)
+    for name, kw in BIN_CASES.items():
+        kw = dict(kw)
+        size = (kw.pop("capacity"), kw.pop("max_tiles_per_face"))
+        compare_emission((aa, depth01, alive, pm, 48, 40, *size), kw, f"case {name}")
+
+    # A 2x2-tile grid: 28 depth bits, depths at exactly 0 and 1.
+    rng = np.random.default_rng(11)
+    f = 3000
+    aa = screen_soup(rng, 1, f, (-8, -8), (40, 40), 6.0, dev)
+    depth01 = torch.as_tensor(rng.choice(np.float32([0.0, 1.0, 0.25, 1 - 2 ** -24]),
+                                         size=(1, f)), device=dev)
+    alive = torch.as_tensor(rng.uniform(size=(1, f)) < 0.9, device=dev)
+    pm = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    for cull in (True, False):
+        em, _ = compare_emission((aa, depth01, alive, pm, 32, 32, 1 << 15, 2),
+                                 dict(num_giant_faces=64, exact_tile_cull=cull),
+                                 f"2x2 tiles, depths 0 and 1, cull {cull}")
+        if em.bits_d < 25:
+            raise AssertionError(f"the 2x2-tile grid keeps {em.bits_d} depth bits")
+
+    # Faces leaving a ragged 333x201 frame on every side (some by 1e30).
+    f = 20000
+    aa = screen_soup(rng, 2, f, (-300, -200), (633, 400), 60.0, dev)
+    far = torch.as_tensor(rng.choice(np.float32([-1e30, 1e30]), size=(2, 50, 3, 2)), device=dev)
+    aa[:, :50] = far
+    depth01 = torch.as_tensor(rng.uniform(size=(2, f)).astype(np.float32), device=dev)
+    alive = torch.as_tensor(rng.uniform(size=(2, f)) < 0.9, device=dev)
+    pm = torch.tensor([[0, 0], [17, 9]], dtype=torch.int32, device=dev)
+    for cull in (True, False):
+        compare_emission((aa, depth01, alive, pm, 333, 201, 1 << 20, 8),
+                         dict(num_giant_faces=512, giant_tiles=40, exact_tile_cull=cull),
+                         f"off-frame soup 333x201, cull {cull}")
+
+    print(f"  device time per launch ({sz.bin_reps} launches queued back to back) beside "
+          f"its byte bound at {HBM_BYTES_PER_S:.3g} B/s; emission_keys and bin_faces "
+          "against their plain versions:")
+    result = {}
+    for name, (em_args, kwargs, em) in timed.items():
+        launches = bin_emit_launch_ms(em_args, kwargs, sz.bin_reps)
+        for what, (ms, bound, nbytes) in zip(("dense grid", "giant rows"), launches):
+            print(f"    {name} {what}: {ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({nbytes} bytes, {100 * bound / ms:.1f}% of the bound)")
+        em_ms, _ = time_ms(lambda: TB.emission_keys(*em_args, **kwargs), sz.reps)
+        plain_ms, _ = time_ms(lambda: TB.emission_keys_plain(*em_args, **kwargs), sz.plain_reps)
+        bin_ms, _ = time_ms(lambda: TB.bin_faces(*em_args, **kwargs), sz.reps)
+        with plain_emission():
+            bin_plain_ms, _ = time_ms(lambda: TB.bin_faces(*em_args, **kwargs),
+                                      sz.plain_reps)
+        print(f"    {name}: emission_keys {em_ms:.3f} ms (plain {plain_ms:.3f}), bin_faces "
+              f"{bin_ms:.3f} ms (plain emission {bin_plain_ms:.3f}), "
+              f"{em.keys.numel()} slots")
+        result[name] = dict(
+            launch_ms=[x[0] for x in launches], launch_bound_ms=[x[1] for x in launches],
+            launch_bytes=[x[2] for x in launches], emission_keys_ms=em_ms,
+            emission_keys_plain_ms=plain_ms, bin_faces_ms=bin_ms,
+            bin_faces_plain_emission_ms=bin_plain_ms, slots=em.keys.numel())
+    soup = result["soup1m_1080p"]
+    report["bin_emit"].update(
+        ms=sum(soup["launch_ms"]), plain_ms=soup["emission_keys_plain_ms"],
+        bound_ms=sum(soup["launch_bound_ms"]), bound_by="bytes", library_ms=None,
+        timed_on="soup1m_1080p, both launches")
+    return dict(bin_emit=result)
 
 
 def headline_scene(dev, sz: Sizes):
@@ -2844,12 +3128,13 @@ def main() -> int:
     run("2d", phase_peel_adversarial, dev, sz, report)
     deep = run("2d-tiered", phase_peel_deep, dev, sz, report)
     run("2c", phase_stress, dev, sz, report)
+    bin_emit = run("2e", phase_bin_emit, dev, sz, report)
     renderer, s, forward, calls, work, bwd_work = run(
         "3", phase_main_path, dev, sz, report, counted)
     losses = run("3b", phase_training, dev, sz, renderer, s, forward)
     timings = run("4", phase_timing, dev, sz, report, renderer, s, forward, calls,
                   work, bwd_work)
-    timings.update(adam_losses=losses)
+    timings.update(adam_losses=losses, **bin_emit)
     # The layered path after the renderer's timings, which then run in the
     # state they ran in before the layered path existed.
     lr, scene_t, idx, peel_call, tiles, mask, peel_work = run(

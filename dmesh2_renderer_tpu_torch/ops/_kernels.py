@@ -198,6 +198,18 @@ QUAD_MAP = Kernel("quad_map", "quad_map.cu", [
     P, P,                 # out, stream
 ], extra_flags=("-fmad=false",))
 
+# bin_emit, the binning's emission grid, is built without FMA contraction so
+# that its triangle-vs-tile test rounds every operation as the plain
+# version's eager ops do.
+BIN_EMIT = Kernel("bin_emit", "bin_emit.cu", [
+    P, P, P, P,           # aa_face_verts, depth01, alive, patch_min
+    I, I, I, I, I, I, I,  # F, B*F, gx, gy, Kt, bits_d, exact tile cull
+    P, P, I, I,           # giant rows' sorted keys and ids (or null), rows, cols
+    L, L,                 # padding: first slot, slot count
+    P, P, P, P, P,        # keys, payload, selection keys, giant_ids, counts
+    P,                    # stream
+], extra_flags=("-fmad=false",))
+
 
 class Instance:
     """A second kernel of another :class:`Kernel`'s source, counted on its
@@ -248,7 +260,7 @@ _TIERED_ARGTYPES = [
 PEEL_WIDE = Instance("peel_wide", PEEL, "peel_tiered_launch", _TIERED_ARGTYPES)
 PEEL_DEEP = Instance("peel_deep", PEEL, "peel_tiered_launch", _TIERED_ARGTYPES)
 
-KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD, PEEL, QUAD_MAP)
+KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD, PEEL, QUAD_MAP, BIN_EMIT)
 # Everything with a launch count: the built kernels and the peel's wide and
 # deep ones.
 COUNTED = KERNELS + (PEEL_WIDE, PEEL_DEEP)
@@ -264,9 +276,9 @@ def build_all() -> None:
 
 def check_inputs(device, specs) -> None:
     """Raise unless every tensor is on ``device``, of its dtype and shape,
-    and contiguous. ``specs``: (name, tensor, dtype, shape) tuples."""
-    if device.type != "cuda":
-        raise ValueError(f"kernels run on CUDA tensors, got device {device}")
+    and contiguous, and ``device`` is a CUDA device (checked last, so that
+    the rest can be tested on the meta device). ``specs``: (name, tensor,
+    dtype, shape) tuples."""
     for name, t, dtype, shape in specs:
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -277,6 +289,8 @@ def check_inputs(device, specs) -> None:
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if device.type != "cuda":
+        raise ValueError(f"kernels run on CUDA tensors, got device {device}")
 
 
 def check_aligned(name, t) -> None:

@@ -1,7 +1,6 @@
 """Static-capacity tile binning and the per-entry record pack.
 
-Port of ``dmesh2_renderer_tpu/ops/binning.py``. Binning stays plain
-PyTorch, as it was plain XLA in the JAX package, and reproduces its result
+Port of ``dmesh2_renderer_tpu/ops/binning.py``, whose result it reproduces
 bit for bit:
 
   * touched-tile rects per (batch, face), floor/ceil clamped into the grid;
@@ -13,6 +12,11 @@ bit for bit:
     key 0x7FFFFFFF and sort to the end;
   * tile ranges by ``searchsorted`` of the T tile boundaries;
   * a static capacity (rounded up to 128), with dropped entries reported.
+
+The emission grid (every slot's key and payload, before the sort) is the
+hand-written kernel ``csrc/bin_emit.cu`` on the card and its plain version,
+eager PyTorch, on the CPU; the sort, the gather and the tile ranges are
+PyTorch on both, as they were XLA in the JAX package.
 
 The record pack turns the sorted entries into the compositor's input: one
 128-byte record per entry, row-major (R, 32) f32, in the ``REC_*`` layout.
@@ -144,15 +148,25 @@ class EmissionKeys(NamedTuple):
     giant_ids: torch.Tensor     # (M2,) int32
 
 
-def emission_keys(aa_face_verts, depth01, alive, patch_min, patch_width: int,
-                  patch_height: int, capacity: int, max_tiles_per_face: int,
-                  num_giant_faces: int = 0, giant_tiles: int | None = None,
-                  exact_tile_cull: bool = False) -> EmissionKeys:
-    """Every emission slot's packed sort key and payload (before the sort).
+def _depth_bits(t_total: int) -> int:
+    """Bits of quantized depth below the tile in a packed int31 sort key."""
+    bits_t = _ceil_log2(t_total + 1)
+    bits_d = 31 - bits_t
+    if bits_d < 10:
+        raise ValueError(
+            f"tile grid too large for packed int31 sort keys: {t_total} "
+            f"(batch x tiles) needs {bits_t} bits, leaving {bits_d} < 10 "
+            "depth bits. Render fewer views per call or use smaller patches."
+        )
+    return bits_d
 
-    ``capacity`` must already be rounded to STREAM_BLOCK; the slots are
-    padded with sentinels up to it.
-    """
+
+def emission_keys_plain(aa_face_verts, depth01, alive, patch_min, patch_width: int,
+                        patch_height: int, capacity: int, max_tiles_per_face: int,
+                        num_giant_faces: int = 0, giant_tiles: int | None = None,
+                        exact_tile_cull: bool = False) -> EmissionKeys:
+    """Plain version of :func:`emission_keys`: eager ops over the whole
+    (B*F, Kt) grid."""
     b, f = depth01.shape
     bf = b * f
     dev = depth01.device
@@ -187,14 +201,7 @@ def emission_keys(aa_face_verts, depth01, alive, patch_min, patch_width: int,
     num_emitted = valid.sum()
 
     # Packed int31 sort key: tile in the high bits, quantized depth below.
-    bits_t = _ceil_log2(t_total + 1)
-    bits_d = 31 - bits_t
-    if bits_d < 10:
-        raise ValueError(
-            f"tile grid too large for packed int31 sort keys: {t_total} "
-            f"(batch x tiles) needs {bits_t} bits, leaving {bits_d} < 10 "
-            "depth bits. Render fewer views per call or use smaller patches."
-        )
+    bits_d = _depth_bits(t_total)
     # Quantize depth in the INTEGER domain: for bits_d >= 25 the float32
     # value (2^bits_d - 1) rounds up to 2^bits_d, so a float-side clip can
     # still yield dq == 2^bits_d at depth01 == 1.0 and overflow into the
@@ -255,6 +262,93 @@ def emission_keys(aa_face_verts, depth01, alive, patch_min, patch_width: int,
         torch.cat(keys_flat).to(torch.int32),
         torch.cat(payloads_flat).to(torch.int32),
         bits_d, t_total, num_rendered, num_emitted, num_culled, giant_ids)
+
+
+_F32 = torch.float32
+_I32 = torch.int32
+
+
+def emission_keys(aa_face_verts, depth01, alive, patch_min, patch_width: int,
+                  patch_height: int, capacity: int, max_tiles_per_face: int,
+                  num_giant_faces: int = 0, giant_tiles: int | None = None,
+                  exact_tile_cull: bool = False) -> EmissionKeys:
+    """Every emission slot's packed sort key and payload (before the sort).
+
+    ``capacity`` must already be rounded to STREAM_BLOCK; the slots are
+    padded with sentinels up to it. CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/bin_emit.cu`` twice (the dense grid, then the
+    giant rows, selected between the two by the plain version's stable
+    sort), whose keys, payloads, counts and giant ids equal the plain
+    version's element for element. Takes aa_face_verts (B, F, 3, 2) and
+    depth01 (B, F) float32, alive (B, F) bool and patch_min (B, 2) int32.
+    """
+    dev = depth01.device
+    if dev.type == "cpu":
+        return emission_keys_plain(
+            aa_face_verts, depth01, alive, patch_min, patch_width, patch_height,
+            capacity, max_tiles_per_face, num_giant_faces, giant_tiles,
+            exact_tile_cull)
+    b, f = depth01.shape
+    bf = b * f
+    gx, gy = tile_grid_size(patch_width, patch_height)
+    t_total = b * gx * gy
+    kt = max_tiles_per_face
+    bits_d = _depth_bits(t_total)
+    aa_face_verts, depth01, alive, patch_min = (
+        x.contiguous() for x in (aa_face_verts, depth01, alive, patch_min))
+    _kernels.check_inputs(dev, [
+        ("aa_face_verts", aa_face_verts, _F32, (b, f, 3, 2)),
+        ("depth01", depth01, _F32, (b, f)),
+        ("alive", alive, torch.bool, (b, f)),
+        ("patch_min", patch_min, _I32, (b, 2)),
+    ])
+    m2 = min(num_giant_faces, bf)
+    kt2 = 0
+    if m2 > 0:
+        kt2 = gx * gy if giant_tiles is None else min(giant_tiles, gx * gy)
+    slots = bf * kt + m2 * kt2
+    total = max(slots, capacity)
+    keys = torch.empty((total,), dtype=_I32, device=dev)
+    payload = torch.empty((total,), dtype=_I32, device=dev)
+    counts = torch.zeros((3,), dtype=torch.int64, device=dev)
+    select = torch.empty((bf,), dtype=_I32, device=dev) if m2 > 0 else None
+    args = (aa_face_verts, depth01, alive, patch_min, f, bf, gx, gy, kt, bits_d,
+            exact_tile_cull, keys, payload, counts)
+    _bin_emit(*args, rows=bf, cols=kt, pad=(slots, total - slots), select=select)
+    if m2 > 0:
+        # The M2 most-oversized faces: ascending Kt - touched, ties by entry
+        # id through the stable sort.
+        sel_sorted, order = torch.sort(select, stable=True)
+        giant_ids = torch.empty((m2,), dtype=_I32, device=dev)
+        _bin_emit(*args, rows=m2, cols=kt2, giant=(sel_sorted[:m2], order[:m2],
+                                                   giant_ids))
+    else:
+        giant_ids = torch.zeros((0,), dtype=_I32, device=dev)
+    return EmissionKeys(keys, payload, bits_d, t_total, counts[0], counts[1],
+                        counts[2], giant_ids)
+
+
+def _bin_emit(aa_face_verts, depth01, alive, patch_min, f, bf, gx, gy, kt, bits_d,
+              cull, keys, payload, counts, rows, cols, pad=(0, 0), select=None,
+              giant=None):
+    """One launch of ``csrc/bin_emit.cu``: the dense grid (``select``, the
+    giant-selection keys it writes, or None; ``pad``, the first slot and the
+    count of the sentinel padding) or, with ``giant`` (the rows' sorted
+    selection keys and ids, and giant_ids to write), the giant rows."""
+    P = ctypes.c_void_p
+    g_keys, g_order, g_ids = giant or (None, None, None)
+
+    def ptr(t):
+        return P(None if t is None else t.data_ptr())
+
+    lib = _kernels.BIN_EMIT.load()
+    with torch.cuda.device(keys.device):
+        err = lib.bin_emit_launch(
+            ptr(aa_face_verts), ptr(depth01), ptr(alive), ptr(patch_min), f, bf,
+            gx, gy, kt, bits_d, int(cull), ptr(g_keys), ptr(g_order), rows, cols,
+            pad[0], pad[1], ptr(keys), ptr(payload), ptr(select), ptr(g_ids),
+            ptr(counts), _kernels.current_stream(keys.device))
+    _kernels.BIN_EMIT.launched(err)
 
 
 def bin_faces(
@@ -369,10 +463,6 @@ def pack_stream_plain(entry_bf, faces, verts, verts_color, verts_ndc,
         torch.zeros((r, FACE_RECORD_WIDTH - 29), dtype=verts.dtype,
                     device=verts.device),
     ], dim=1)
-
-
-_F32 = torch.float32
-_I32 = torch.int32
 
 
 def pack_stream(entry_bf, faces, verts, verts_color, verts_ndc, faces_opacity,

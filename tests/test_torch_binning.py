@@ -15,7 +15,9 @@ from dmesh2_renderer_tpu import geometry as JG
 from dmesh2_renderer_tpu.ops import binning as JB
 from dmesh2_renderer_tpu.ops.reference import face_depth01
 from dmesh2_renderer_tpu_torch.convert import scene_from_jax
+from dmesh2_renderer_tpu_torch.ops import _kernels
 from dmesh2_renderer_tpu_torch.ops import binning as TB
+from dmesh2_renderer_tpu_torch.utils.profiling import counters, reset_counters
 from tests._torch_port import scene_arrays, to_numpy
 
 W, H, B = 48, 40, 2
@@ -50,12 +52,16 @@ CASES = {
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_bin_faces_matches_jax_exactly(case):
+    """CPU tensors take the plain emission grid (bin_emit does not launch),
+    and the binning equals the JAX package's."""
     kw, truncates = CASES[case]
     _, _, aa, depth01, alive = _inputs()
     j = JB.bin_faces(jnp.asarray(aa), jnp.asarray(depth01), jnp.asarray(alive),
                      jnp.asarray(PATCH_MIN), W, H, **kw)
+    reset_counters()
     t = TB.bin_faces(torch.as_tensor(aa), torch.as_tensor(depth01),
                      torch.as_tensor(alive), torch.as_tensor(PATCH_MIN), W, H, **kw)
+    assert counters()["launches"]["bin_emit"] == 0
     for name in JB.Binning._fields:
         a, b = to_numpy(getattr(j, name)), to_numpy(getattr(t, name))
         assert b.shape == a.shape, name
@@ -63,6 +69,53 @@ def test_bin_faces_matches_jax_exactly(case):
     assert (int(t.num_truncated) > 0) == truncates
     if kw["num_giant_faces"]:
         assert (to_numpy(t.giant_ids) < B * aa.shape[1]).any()
+
+
+def test_bin_emit_is_a_counted_kernel():
+    """The emission grid's kernel is built with the others (without FMA
+    contraction, as its cull must round as the eager ops do) and its
+    launches are counted; a CPU call launches nothing."""
+    assert _kernels.BIN_EMIT in _kernels.KERNELS
+    assert _kernels.BIN_EMIT in _kernels.COUNTED
+    assert _kernels.BIN_EMIT.source.name == "bin_emit.cu"
+    assert "-fmad=false" in _kernels.BIN_EMIT.flags
+    _, _, aa, depth01, alive = _inputs()
+    reset_counters()
+    em = TB.emission_keys(torch.as_tensor(aa), torch.as_tensor(depth01),
+                          torch.as_tensor(alive), torch.as_tensor(PATCH_MIN), W, H,
+                          2048, 2, num_giant_faces=16, exact_tile_cull=True)
+    assert em.keys.dtype == em.payload.dtype == torch.int32
+    assert counters()["launches"]["bin_emit"] == 0
+
+
+# The kernel path's argument checks, on the meta device (which runs every
+# check but the last, that the tensors are on a CUDA device): case -> the
+# argument changed, its wrong value, the error.
+BAD_INPUTS = {
+    "aa_dtype": ("aa", torch.float64, "aa_face_verts must be torch.float32"),
+    "aa_shape": ("aa", (1, 4, 3, 3), r"aa_face_verts must have shape \(1, 4, 3, 2\)"),
+    "depth_dtype": ("depth01", torch.float16, "depth01 must be torch.float32"),
+    "alive_dtype": ("alive", torch.int32, "alive must be torch.bool"),
+    "alive_shape": ("alive", (1, 5), r"alive must have shape \(1, 4\)"),
+    "patch_min_dtype": ("patch_min", torch.int64, "patch_min must be torch.int32"),
+    "not_cuda": (None, None, "kernels run on CUDA tensors"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_INPUTS))
+def test_emission_keys_kernel_refuses_what_it_does_not_take(case):
+    arg, bad, message = BAD_INPUTS[case]
+    spec = dict(aa=((1, 4, 3, 2), torch.float32), depth01=((1, 4), torch.float32),
+                alive=((1, 4), torch.bool), patch_min=((1, 2), torch.int32))
+    if arg is not None:
+        shape, dtype = spec[arg]
+        spec[arg] = (bad, dtype) if isinstance(bad, tuple) else (shape, bad)
+    t = {k: torch.empty(shape, dtype=dtype, device="meta") for k, (shape, dtype) in spec.items()}
+    reset_counters()
+    with pytest.raises(ValueError, match=message):
+        TB.emission_keys(t["aa"], t["depth01"], t["alive"], t["patch_min"], 32, 32, 128,
+                         2, num_giant_faces=2, exact_tile_cull=True)
+    assert counters()["launches"]["bin_emit"] == 0
 
 
 def test_face_tile_rects_matches_jax():
