@@ -1,0 +1,9 @@
+"""``scatter_ms.trainer``: device milliseconds per iteration of the
+operations enqueued inside the port's ``dmesh2/scatter`` ranges
+(``contributing_mask`` and ``scatter_entry_grads`` over every view)."""
+
+from bench_port import port_spans
+
+
+def read(run):
+    return port_spans.stage_ms(run, "scatter")

@@ -1,0 +1,8 @@
+"""``torch_ops_ms.trainer``: device milliseconds per iteration in operations
+other than the port's hand-written kernels."""
+
+from bench_port import readers
+
+
+def read(run):
+    return readers.torch_ops_ms(run)

@@ -34,6 +34,7 @@ import torch.distributed as dist
 
 from dmesh2_renderer_tpu_torch.functional import generate_layers, render
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
+from dmesh2_renderer_tpu_torch.utils.profiling import span
 from dmesh2_renderer_tpu_torch.utils.validate import resolve_device
 
 
@@ -264,6 +265,10 @@ def make_sharded_train_step(
     :class:`RenderStats` max-reduced over the ranks. The full-batch inputs
     are given to every rank. ``step.init(params)`` returns the optimizer
     over ``params`` (leaf tensors on the mesh's device).
+
+    Under a profiler the loss opens the range ``dmesh2/loss`` and the
+    optimizer's step ``dmesh2/optimizer``; ``zero_grad(set_to_none=True)``
+    drops the gradients and launches nothing.
     """
     _check_axis(mesh, axis)
     config = config or RasterConfig()
@@ -279,9 +284,10 @@ def make_sharded_train_step(
             _on(mesh, faces_intense)[s], _on(mesh, mv)[s], _on(mesh, proj)[s],
             _on(mesh, background), width, height, tau, config,
             device=mesh.device)
-        loss = torch.mean((color - _on(mesh, target_color)[s]) ** 2)
-        if depth_weight:
-            loss = loss + depth_weight * torch.mean(depth ** 2)
+        with span("loss"):
+            loss = torch.mean((color - _on(mesh, target_color)[s]) ** 2)
+            if depth_weight:
+                loss = loss + depth_weight * torch.mean(depth ** 2)
         loss.backward()
         if mesh.world_size > 1:
             loss_mean = _reduce_grads(mesh, params, mesh.world_size, loss.detach())
@@ -289,7 +295,8 @@ def make_sharded_train_step(
             loss_mean = loss.detach()
         stats = torch.stack([aux.num_truncated, aux.num_grad_contributing])
         stats = _all_reduce(mesh, stats, dist.ReduceOp.MAX)
-        opt_state.step()
+        with span("optimizer"):
+            opt_state.step()
         return params, opt_state, loss_mean, RenderStats(stats[0], stats[1])
 
     step.init = lambda params: optimizer(list(params))

@@ -35,6 +35,7 @@ from dmesh2_renderer_tpu_torch.parallel.data_parallel import (
     _make_1d, _on, _reduce_grads,
 )
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
+from dmesh2_renderer_tpu_torch.utils.profiling import span
 from dmesh2_renderer_tpu_torch.utils.validate import valence_cache, valence_cap
 
 
@@ -117,10 +118,11 @@ def band_loss(params: SceneParams, faces, faces_intense, mv, proj,
         config, k, n, device=faces.device)
     # Equal-sized shards: the mean over ranks of the local means is the
     # global mean.
-    loss = torch.mean((color - target_color) ** 2)
-    if depth_weight:
-        depth = 1.0 - (depth_raw + 1.0) / 2.0
-        loss = loss + depth_weight * torch.mean(depth ** 2)
+    with span("loss"):
+        loss = torch.mean((color - target_color) ** 2)
+        if depth_weight:
+            depth = 1.0 - (depth_raw + 1.0) / 2.0
+            loss = loss + depth_weight * torch.mean(depth ** 2)
     return loss, torch.stack([aux.num_truncated, aux.num_grad_contributing])
 
 
@@ -149,7 +151,8 @@ def make_grid_train_step(
 
     Returns step(params, opt_state, faces_intense, mv, proj, target_color,
     background) -> (params, opt_state, loss, stats: RenderStats); the full
-    batch is given to every rank.
+    batch is given to every rank. Its ranges are
+    :func:`~dmesh2_renderer_tpu_torch.parallel.make_sharded_train_step`'s.
     """
     config = config or RasterConfig()
     if pixel_axis not in mesh.axis_names:
@@ -178,7 +181,8 @@ def make_grid_train_step(
         if mesh.world_size > 1:
             loss = _reduce_grads(mesh, params, mesh.world_size, loss.detach())
         stats = _all_reduce(mesh, stats, dist.ReduceOp.MAX)
-        opt_state.step()
+        with span("optimizer"):
+            opt_state.step()
         return params, opt_state, loss.detach(), RenderStats(stats[0], stats[1])
 
     step.init = lambda params: optimizer(list(params))

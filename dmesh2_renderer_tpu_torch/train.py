@@ -31,6 +31,7 @@ from dmesh2_renderer_tpu_torch.parallel.data_parallel import (
 )
 from dmesh2_renderer_tpu_torch.parallel.patch_parallel import make_grid_train_step
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
+from dmesh2_renderer_tpu_torch.utils.profiling import host_sync, span
 
 
 def check_render_stats(stats: RenderStats, config: RasterConfig) -> None:
@@ -40,10 +41,12 @@ def check_render_stats(stats: RenderStats, config: RasterConfig) -> None:
     the same wording: binning truncation drops geometry; a contributing
     count above ``grad_compact_capacity`` is harmless here (the port's
     backward reduces every contributing entry) but would make the JAX
-    package's backward drop gradient rows with this config. Costs two scalar
-    device-to-host reads.
+    package's backward drop gradient rows with this config. Costs one scalar
+    device-to-host read, two with ``grad_compact_capacity`` set: each a pass
+    through the host-sync site ``render_stats``.
     """
-    truncated = int(stats.num_truncated)
+    with host_sync("render_stats"):
+        truncated = int(stats.num_truncated)
     if truncated > 0:
         warnings.warn(
             f"binning truncated {truncated} face instances this step; the "
@@ -53,9 +56,13 @@ def check_render_stats(stats: RenderStats, config: RasterConfig) -> None:
             stacklevel=3,
         )
     cap = config.grad_compact_capacity
-    if cap and int(stats.num_grad_contributing) > cap:
+    if not cap:
+        return
+    with host_sync("render_stats"):
+        contributing = int(stats.num_grad_contributing)
+    if contributing > cap:
         warnings.warn(
-            f"{int(stats.num_grad_contributing)} entries contribute "
+            f"{contributing} entries contribute "
             f"gradients but grad_compact_capacity={cap}. This "
             "backward reduces every contributing entry, so its "
             "gradients stay right; the JAX package's backward would "
@@ -197,13 +204,20 @@ class Trainer:
 
     def step(self, state: TrainState, faces_intense, mv, proj, target_color,
              background):
-        params, opt_state, loss, stats = self.step_fn(
-            state.params, state.opt_state, faces_intense, mv, proj,
-            target_color, background,
-        )
-        self.last_stats = stats
-        if self.config.warn_on_overflow:
-            check_render_stats(stats, self.config)
+        """One optimisation step over every view: (the new state, the loss).
+
+        Under a profiler it is the root range ``dmesh2/train_step``: the
+        step function's ranges (the render's, ``loss``, the backward's and
+        ``optimizer``) and ``stats``, the capacity check."""
+        with span("train_step"):
+            params, opt_state, loss, stats = self.step_fn(
+                state.params, state.opt_state, faces_intense, mv, proj,
+                target_color, background,
+            )
+            self.last_stats = stats
+            if self.config.warn_on_overflow:
+                with span("stats"):
+                    check_render_stats(stats, self.config)
         state = TrainState(params, opt_state, state.step + 1)
         if (self.checkpoint_path and self.mesh.rank == 0
                 and int(state.step) % self.checkpoint_every == 0):

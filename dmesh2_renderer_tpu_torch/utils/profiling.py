@@ -13,7 +13,11 @@ depth peel, ``peel`` (``peel_layers``). Around them are the roots
 ``render_partial_unchecked``),
 ``generate`` (``LayeredRenderer.generate``, ``functional.generate_layers``,
 ``peel_pipeline``) and ``backward`` (the autograd backward, on autograd's
-thread), and ``validate`` (argument checks and the valence cache).
+thread), and ``validate`` (argument checks and the valence cache). The
+training step (``train.Trainer.step``) is the root ``train_step``: beneath
+it the render's and the backward's ranges, ``loss`` (the mean squared
+error), ``optimizer`` (the optimizer's step) and ``stats`` (the capacity
+check, whose reads are the host-sync site ``render_stats``).
 
 :func:`span` costs one global read while no ``torch.profiler`` records;
 under one it opens ``record_function("dmesh2/<name>")``, so the ranges sit
