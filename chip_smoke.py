@@ -92,6 +92,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launch's device time (torch.profiler) beside its byte bound (keys and
    payloads written, faces read), and ``emission_keys`` and ``bin_faces``
    timed against their plain versions.
+2f. The gradient reduction (``csrc/grad_reduce.cu``) against the plain
+   reductions on the card, on the arguments the backward passes it in one
+   training step (``Renderer.forward`` and ``loss.backward()`` of ``color.sum()
+   + depth.sum()``) on the benchmark's soup at 1080p, one view and 16
+   (``bench_port/configs``): ``reduce_entry_grads`` against
+   ``reduce_entry_grads_plain`` and against ``contributing_mask`` +
+   ``scatter_entry_grads``, and the AA corners' backward against
+   ``aa_cotangent_to_verts_image_plain`` (``index_add_``). Each output
+   element may differ by 2 (n - 1) u S, with u = 2^-24, n the most terms
+   any element sums and S the element's sum of absolute terms: the bound of
+   any two orders of a float32 sum. Then each one's device time beside its
+   byte bound, the plain versions', the chain the kernel replaced (mask,
+   sync, gather, ``index_add_``) and autograd's backward of the corner gather.
 3. The main path at full size: one training step, ``Renderer.forward`` on
    the 1M-triangle soup at 1920x1080 (the JAX package's headline scene) and
    ``loss.backward()`` of ``color.sum() + depth.sum()``, with every kernel
@@ -267,11 +280,15 @@ REPLACES = {
     "quad_map": "benchmarks/micro_vpu.py:34",
     # No Pallas kernel: the JAX package's emission grid is XLA ops.
     "bin_emit": "dmesh2_renderer_tpu/ops/binning.py:184",
+    # No Pallas kernels: XLA sorts and segmented scans.
+    "grad_reduce": "dmesh2_renderer_tpu/ops/pallas_bwd.py:546",
+    "corner_reduce": "dmesh2_renderer_tpu/geometry.py:253",
 }
 # The kernels of each main path: the training step (and the sharded ones),
 # a forward, the layered peel at 8 layers (the register instances) and the
 # sharded peel at 32 (the wide one) and 128 (the deep one).
-TRAINING_KERNELS = ("bin_emit", "pack_stream", "composite_fwd", "composite_bwd")
+TRAINING_KERNELS = ("bin_emit", "pack_stream", "composite_fwd", "composite_bwd",
+                    "grad_reduce", "corner_reduce")
 FORWARD_KERNELS = ("bin_emit", "pack_stream", "composite_fwd")
 LAYERED_KERNELS = ("bin_emit", "peel")
 SHARDED_KERNELS = ("bin_emit", "peel_wide")
@@ -411,6 +428,10 @@ class Sizes:
     # launches timed per scene.
     bin_seeds: tuple = (1, 2718281828, 3141592653)
     bin_reps: int = 20
+    # Phase 2f: the benchmark's soup configurations whose training step
+    # feeds the gradient reduction, at this seed.
+    reduce_configs: tuple = ("soup1m_1080p", "soup1m_16view_1080p")
+    reduce_seed: int = 1618033988
 
 
 def nvidia_smi_line() -> str:
@@ -649,13 +670,25 @@ def compare_backward(kernel_rec, plain_rec, label):
     return worst
 
 
+def in_prefixes(bwd_args, table):
+    """The backward compositor's table with every row outside the
+    contributing prefixes zeroed: the backward leaves those rows unset
+    (``ops/rasterize.py``), and nothing reads them."""
+    from dmesh2_renderer_tpu_torch.ops.binning import contributing_mask
+
+    keep, _ = contributing_mask(bwd_args[1], bwd_args[2], bwd_args[3], table.shape[0])
+    return torch.where(keep[:, None], table, 0.0)
+
+
 def check_backward(calls, label, report, work=None):
     """Hold composite_bwd's output from one backward (``calls`` from
     :func:`captured_kernel_calls`) against its plain version on the same
-    inputs; ``work`` is passed on to count the work of these inputs."""
+    inputs, on the rows of the contributing prefixes; ``work`` is passed on
+    to count the work of these inputs."""
     from dmesh2_renderer_tpu_torch.ops.composite_bwd import composite_backward_plain
 
     args, out = calls["composite_backward"]
+    out = in_prefixes(args, out)
     plain = composite_backward_plain(*args, work=work)
     sync()
     err = compare_backward(out, plain, f"{label} tau={args[-1]}")
@@ -1140,6 +1173,192 @@ def phase_bin_emit(dev, sz: Sizes, report):
     return dict(bin_emit=result)
 
 
+@contextlib.contextmanager
+def captured_reductions():
+    """Record the arguments of the backward's two reductions as a training
+    step calls them (``reduce_entry_grads`` in ``ops/rasterize.py``,
+    ``aa_cotangent_to_verts_image`` in ``geometry.py``): name -> args."""
+    from dmesh2_renderer_tpu_torch import geometry as G
+    from dmesh2_renderer_tpu_torch.ops import rasterize
+
+    calls = {}
+    sites = ((rasterize, "reduce_entry_grads"), (G, "aa_cotangent_to_verts_image"))
+    originals = [getattr(m, n) for m, n in sites]
+
+    def recording(name, fn):
+        def call(*args):
+            calls[name] = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                                for a in args)
+            return fn(*args)
+        return call
+
+    for (m, n), fn in zip(sites, originals):
+        setattr(m, n, recording(n, fn))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in zip(sites, originals):
+            setattr(m, n, fn)
+
+
+def order_bound(kernel, plain, plain_fn, args, label):
+    """Hold each output of ``kernel`` to ``plain`` (tuples of tensors): an
+    element may differ by 2 (n - 1) u S, S its sum of absolute terms
+    (``plain_fn`` on |the first argument|), n the most terms any element
+    sums (``plain_fn`` on the first argument's non-zeros, as ones), u = 2^-24,
+    plus n times the smallest normal float (atomics flush subnormals to
+    zero). Raises beyond it; returns (largest |difference|, largest share of
+    its bound, n)."""
+    x = args[0]
+    mag = plain_fn(x.abs(), *args[1:])
+    terms = plain_fn((x != 0).float(), *args[1:])
+    n = max(float(t.max()) for t in terms if t.numel())
+    u = 2.0 ** -24
+    worst = share = 0.0
+    for i, (k, p, m) in enumerate(zip(kernel, plain, mag)):
+        if not torch.isfinite(k).all():
+            raise AssertionError(f"{label}: output {i} not finite")
+        diff = (k - p).abs()
+        bound = 2.0 * max(n - 1.0, 0.0) * u * m + n * torch.finfo(torch.float32).tiny
+        if bool((diff > bound).any()):
+            raise AssertionError(f"{label}: output {i} differs by {float(diff.max())}, "
+                                 f"beyond 2 (n - 1) u S (n = {n:.0f})")
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        share = max(share, float((diff / bound.clamp(min=1e-38)).max())
+                    if diff.numel() else 0.0)
+    return worst, share, n
+
+
+def phase_grad_reduce(dev, sz: Sizes, report):
+    """csrc/grad_reduce.cu against the plain reductions, and timed (module
+    docstring, 2f)."""
+    from dmesh2_renderer_tpu_torch import RasterConfig, Renderer
+    from dmesh2_renderer_tpu_torch import geometry as G
+    from dmesh2_renderer_tpu_torch.ops import _kernels
+    from dmesh2_renderer_tpu_torch.ops.binning import contributing_mask
+    from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
+        GRAD_COLUMNS, reduce_entry_grads, reduce_entry_grads_plain, scatter_entry_grads)
+
+    print("phase 2f: grad_reduce (the gradient reduction) against the plain reductions")
+    result = {}
+    for name in sz.reduce_configs:
+        scene, config = bench_scene(name, sz.reduce_seed, dev)
+        w, h = int(config["width"]), int(config["height"])
+        renderer = Renderer(scene.mv, scene.proj, w, h, device=dev,
+                            config=RasterConfig(**config["raster"]))
+        params = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+                  for k in TRAINABLE}
+        kernels = (_kernels.GRAD_REDUCE, _kernels.CORNER_REDUCE)
+        reset_launches(kernels)
+        with captured_reductions() as calls:
+            color, depth = renderer.forward(
+                list(range(scene.views)), [[0, 0]] * scene.views, w, h, params["verts"],
+                scene.faces, params["verts_color"], params["faces_opacity"],
+                params["faces_intense"], scene.background, float(config["aa_temperature"]))
+            (color.sum() + depth.sum()).backward()
+        launches = read_launches(kernels)
+        if launches != {"grad_reduce": 1, "corner_reduce": 1}:
+            raise AssertionError(f"{name}: one training step launched {launches}")
+        del color, depth, params, renderer
+        args = calls["reduce_entry_grads"]
+        g, neg, faces, n_verts = calls["aa_cotangent_to_verts_image"]
+        grad_records, entry_bf, starts, counts, nc_tile = args[:5]
+        r = grad_records.shape[0]
+        keep, n_contrib = contributing_mask(starts, counts, nc_tile, r)
+        n_contrib = int(n_contrib)
+        # The table outside the prefixes is unset: give the plain versions,
+        # which read every row, zeros there.
+        rec0 = torch.where(keep[:, None], grad_records, 0.0)
+        plain_args = (rec0, *args[1:])
+        label = f"{name} ({scene.views} views)"
+
+        kernel = reduce_entry_grads(*args)
+        again = reduce_entry_grads(*args)
+        plain = reduce_entry_grads_plain(*plain_args)
+        err, share, n = order_bound(kernel, plain, reduce_entry_grads_plain, plain_args,
+                                    f"{label} reduce_entry_grads vs plain")
+        chain = list(scatter_entry_grads(rec0, entry_bf, faces, n_verts, args[7], keep))
+        d_vndc = torch.zeros_like(kernel[3])
+        d_vndc[..., 2] = chain[3]
+        chain[3] = d_vndc
+        err2, share2, _ = order_bound(kernel, chain, reduce_entry_grads_plain, plain_args,
+                                      f"{label} reduce_entry_grads vs scatter_entry_grads")
+        runs = max(float((a - b).abs().max()) for a, b in zip(kernel, again))
+        print(f"  {label}: reduce_entry_grads within 2 (n - 1) u S of the plain version "
+              f"(max|diff| {err:.3g}, {100 * share:.2f}% of its bound at most, n = {n:.0f}) "
+              f"and of mask + scatter_entry_grads (max|diff| {err2:.3g}, "
+              f"{100 * share2:.2f}%); two kernel runs differ by up to {runs:.3g}")
+        corner = G.aa_cotangent_to_verts_image(g, neg, faces, n_verts)
+        corner_plain = G.aa_cotangent_to_verts_image_plain(g, neg, faces, n_verts)
+        cerr, cshare, cn = order_bound(
+            (corner,), (corner_plain,),
+            lambda *a: (G.aa_cotangent_to_verts_image_plain(*a),), (g, neg, faces, n_verts),
+            f"{label} aa_cotangent_to_verts_image vs plain")
+        for kernel_name, e in (("grad_reduce", max(err, err2)), ("corner_reduce", cerr)):
+            report[kernel_name]["max_abs_err"] = max(report[kernel_name]["max_abs_err"], e)
+        print(f"  {label}: aa_cotangent_to_verts_image within 2 (n - 1) u S of its plain "
+              f"version (max|diff| {cerr:.3g}, {100 * cshare:.2f}%, n = {cn:.0f}); "
+              f"identical bits {torch.equal(corner, corner_plain)}")
+
+        # Bytes: the prefixes' records and entry ids, the tile arrays, the
+        # faces once, each output written once.
+        outs = sum(t.numel() for t in kernel) * 4
+        nbytes = n_contrib * (GRAD_COLUMNS * 4 + 4) + 3 * starts.numel() * 4 + \
+            faces.numel() * 4 + outs
+        cbytes = g.numel() * 4 + neg.numel() + faces.numel() * 4 + corner.numel() * 4
+
+        def old_chain():
+            kp, _ = contributing_mask(starts, counts, nc_tile, r)
+            out = scatter_entry_grads(grad_records, entry_bf, faces, n_verts, args[7], kp)
+            z = torch.zeros_like(kernel[3])
+            z[..., 2] = out[3]
+            return out
+
+        image = torch.zeros((neg.shape[0], n_verts, 2), device=dev, requires_grad=True)
+        gathered = G._face_aa_verts_impl(image, faces)[0]
+        t = dict(
+            kernel_ms=time_ms(lambda: reduce_entry_grads(*args), sz.reps)[0],
+            kernel_queued_ms=queued_ms(lambda: reduce_entry_grads(*args), sz.bin_reps),
+            plain_ms=time_ms(lambda: reduce_entry_grads_plain(*plain_args), sz.reps)[0],
+            replaced_chain_ms=time_ms(old_chain, sz.reps)[0],
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+            corner_kernel_ms=time_ms(lambda: G.aa_cotangent_to_verts_image(
+                g, neg, faces, n_verts), sz.reps)[0],
+            corner_kernel_queued_ms=queued_ms(lambda: G.aa_cotangent_to_verts_image(
+                g, neg, faces, n_verts), sz.bin_reps),
+            corner_index_add_ms=time_ms(lambda: G.aa_cotangent_to_verts_image_plain(
+                g, neg, faces, n_verts), sz.reps)[0],
+            corner_autograd_gather_ms=time_ms(lambda: torch.autograd.grad(
+                gathered, image, g, retain_graph=True), sz.reps)[0],
+            corner_bound_ms=cbytes / HBM_BYTES_PER_S * 1e3, corner_bytes=cbytes,
+            contributing_rows=n_contrib, rows=r, max_terms=n,
+            max_abs_diff_plain=err, max_abs_diff_chain=err2, max_abs_diff_runs=runs,
+            corner_max_abs_diff=cerr)
+        print(f"  {label}: {n_contrib} contributing rows of {r}; reduce_entry_grads "
+              f"{t['kernel_ms']:.3f} ms ({t['kernel_queued_ms']:.3f} queued), bound "
+              f"{t['bound_ms']:.3f} ms ({nbytes} bytes), plain {t['plain_ms']:.3f} ms, the "
+              f"replaced mask + sync + gather + index_add_ {t['replaced_chain_ms']:.3f} ms")
+        print(f"  {label}: corners: kernel {t['corner_kernel_ms']:.3f} ms "
+              f"({t['corner_kernel_queued_ms']:.3f} queued), index_add_ "
+              f"{t['corner_index_add_ms']:.3f} ms, autograd of the gather "
+              f"{t['corner_autograd_gather_ms']:.3f} ms, bound {t['corner_bound_ms']:.3f} ms")
+        result[name] = t
+        del calls, args, plain_args, kernel, again, plain, chain, rec0, g, neg, gathered
+        del image, corner, corner_plain, scene
+        torch.cuda.empty_cache()
+    main = result[sz.reduce_configs[0]]
+    report["grad_reduce"].update(
+        ms=main["kernel_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by="bytes", library_ms=None, replaced_ms=main["replaced_chain_ms"],
+        timed_on=f"{sz.reduce_configs[0]}, one training step's reduction")
+    report["corner_reduce"].update(
+        ms=main["corner_kernel_ms"], plain_ms=main["corner_index_add_ms"],
+        bound_ms=main["corner_bound_ms"], bound_by="bytes", library_ms=None,
+        replaced_ms=main["corner_autograd_gather_ms"],
+        timed_on=f"{sz.reduce_configs[0]}, one training step's AA corners")
+    return dict(grad_reduce=result)
+
+
 def headline_scene(dev, sz: Sizes):
     from dmesh2_renderer_tpu_torch import RasterConfig
     from dmesh2_renderer_tpu_torch.utils.meshes import orbit_cameras, triangle_soup
@@ -1230,6 +1449,7 @@ def phase_main_path(dev, sz: Sizes, report, kernels):
     # Determinism: the backward kernel again, twice, on the same inputs.
     from dmesh2_renderer_tpu_torch.ops.composite_bwd import composite_backward
     bwd_args, bwd_out = calls["composite_backward"]
+    bwd_out = in_prefixes(bwd_args, bwd_out)
     same = all(torch.equal(bwd_out, composite_backward(*bwd_args)) for _ in range(2))
     print(f"  composite_bwd on the {main_label} inputs, three runs: identical bits {same}")
     if not same:
@@ -1349,9 +1569,9 @@ def backward_bound(bwd_args, work):
 def phase_timing(dev, sz: Sizes, report, renderer, s, forward, calls, work,
                  bwd_work):
     from dmesh2_renderer_tpu_torch.ops.binning import (
-        bin_faces, contributing_mask, emission_keys, pack_stream, pack_stream_plain)
+        bin_faces, emission_keys, pack_stream, pack_stream_plain)
     from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
-        composite_backward, composite_backward_plain, scatter_entry_grads)
+        composite_backward, composite_backward_plain, reduce_entry_grads)
     from dmesh2_renderer_tpu_torch.ops.composite_fwd import (
         composite_forward, composite_forward_plain)
     from dmesh2_renderer_tpu_torch.ops.reference import face_depth01
@@ -1458,20 +1678,19 @@ def phase_timing(dev, sz: Sizes, report, renderer, s, forward, calls, work,
     print(f"  composite_bwd: {cb_ms:.3f} ms, plain {cb_plain_ms:.3f} ms, "
           f"bound {bound:.3f} ms ({bound_by}; {cb_work})")
 
-    # Where the backward's time goes: the reduction (contributing mask +
-    # index_add_ scatter) and the autograd tail (projection and AA corners
-    # back to verts) on the same inputs.
+    # Where the backward's time goes: the reduction (grad_reduce) and the
+    # autograd tail (projection and AA corners back to verts) on the same
+    # inputs.
     starts, counts, nc_tile = bwd_args[1], bwd_args[2], bwd_args[3]
     n_verts, n_batch = verts.shape[0], inten.shape[0]
 
     def reduce():
-        keep, _ = contributing_mask(starts, counts, nc_tile, entry_bf.shape[0])
-        return scatter_entry_grads(grad_records, entry_bf, faces, n_verts, n_batch, keep)
+        return reduce_entry_grads(grad_records, entry_bf, starts, counts, nc_tile, faces,
+                                  n_verts, n_batch)
 
     red_ms, _ = time_ms(reduce, sz.reps)
     d = reduce()
-    d_vndc = torch.zeros_like(vndc)
-    d_vndc[..., 2] = d[3]
+    d_vndc = d[3]
     v_leaf = verts.clone().requires_grad_(True)
     vndc_t, vimg_t = G.compute_verts_ndc_image(v_leaf, mv, proj, sz.width, sz.height)
     aa_t = G.face_aa_verts_ccw(vimg_t, faces)
@@ -3129,6 +3348,7 @@ def main() -> int:
     deep = run("2d-tiered", phase_peel_deep, dev, sz, report)
     run("2c", phase_stress, dev, sz, report)
     bin_emit = run("2e", phase_bin_emit, dev, sz, report)
+    bin_emit.update(run("2f", phase_grad_reduce, dev, sz, report))
     renderer, s, forward, calls, work, bwd_work = run(
         "3", phase_main_path, dev, sz, report, counted)
     losses = run("3b", phase_training, dev, sz, renderer, s, forward)

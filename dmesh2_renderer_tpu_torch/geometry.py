@@ -7,18 +7,23 @@ Jacobians the backward compositor uses (clamp and Moeller-Trumbore). Every
 function works on tensors of any device and keeps the JAX package's
 layouts, so the tests compare like with like.
 
-The JAX package's hand-written backward of ``face_aa_verts_ccw`` exists only
-to avoid an XLA scatter on the TPU; here autograd differentiates the gather
-and the CCW swap, which gives the same gradient.
+``face_aa_verts_ccw`` keeps the JAX package's hand-written backward
+(``aa_cotangent_to_verts_image``: un-swap, then sum onto the vertices). The
+JAX package sorts and scans because scatters are slow on the TPU; here the
+sum is a scatter with atomics, ``csrc/grad_reduce.cu``'s second kernel on
+CUDA tensors, ``index_add_`` on CPU tensors, in place of autograd's sorted
+backward of the gather.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from dmesh2_renderer_tpu_torch.ops import _kernels
 from dmesh2_renderer_tpu_torch.utils.config import AA_EPS, RAY_NORM_EPS, W_EPS
 from dmesh2_renderer_tpu_torch.utils.profiling import host_sync
 
@@ -187,13 +192,78 @@ def _face_aa_verts_impl(verts_image, faces):
     return torch.stack([p0, q1, q2], dim=-2), neg
 
 
+def aa_cotangent_to_verts_image_plain(g, neg, faces, n_verts: int):
+    """Plain version of ``aa_cotangent_to_verts_image`` (any device, any
+    float type): the un-swapped corners' indices, then one ``index_add_``
+    along the flattened (batch, vertex) dimension."""
+    b, f = neg.shape
+    fl = faces.long()
+    v1 = torch.where(neg, fl[:, 2], fl[:, 1])                   # (B, F)
+    v2 = torch.where(neg, fl[:, 1], fl[:, 2])
+    vid = torch.stack([fl[:, 0].expand(b, f), v1, v2], dim=-1)   # (B, F, 3)
+    base = torch.arange(b, device=g.device)[:, None, None] * n_verts
+    out = g.new_zeros((b * n_verts, 2))
+    out.index_add_(0, (vid + base).reshape(-1), g.reshape(-1, 2))
+    return out.reshape(b, n_verts, 2)
+
+
+def aa_cotangent_to_verts_image(g, neg, faces, n_verts: int):
+    """Reduce an AA-corner cotangent (B, F, 3, 2) onto d verts_image (B, P, 2).
+
+    The JAX package's function of that name: un-swap the CCW reorder
+    (``neg`` (B, F) bool, the forward's swap mask), then sum each corner
+    onto its vertex. On CUDA tensors ``csrc/grad_reduce.cu``'s corner
+    kernel adds with atomics, so the last bits of a vertex shared by several
+    faces change from run to run; on CPU tensors the plain version.
+    """
+    dev = g.device
+    if dev.type == "cpu":
+        return aa_cotangent_to_verts_image_plain(g, neg, faces, n_verts)
+    b, f = neg.shape
+    faces = faces.to(torch.int32).contiguous()
+    _kernels.check_inputs(dev, [
+        ("g", g, torch.float32, (b, f, 3, 2)),
+        ("neg", neg, torch.bool, (b, f)),
+        ("faces", faces, torch.int32, (f, 3)),
+    ])
+    out = torch.zeros((b, n_verts, 2), dtype=torch.float32, device=dev)
+    if b * f == 0:
+        return out
+    launch = _kernels.CORNER_REDUCE.load()
+    P = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        err = launch(P(g.data_ptr()), P(neg.data_ptr()), P(faces.data_ptr()),
+                     3 * b * f, f, n_verts, P(out.data_ptr()),
+                     _kernels.current_stream(dev))
+    _kernels.CORNER_REDUCE.launched(err)
+    return out
+
+
+class _FaceAAVertsCCW(torch.autograd.Function):
+    """The CCW corner gather with the JAX package's backward."""
+
+    @staticmethod
+    def forward(ctx, verts_image, faces):
+        out, neg = _face_aa_verts_impl(verts_image, faces)
+        ctx.save_for_backward(neg, faces)
+        ctx.n_verts = verts_image.shape[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        neg, faces = ctx.saved_tensors
+        return aa_cotangent_to_verts_image(g.contiguous(), neg, faces, ctx.n_verts), None
+
+
 def face_aa_verts_ccw(verts_image, faces):
     """CCW screen-space AA triangles (B, F, 3, 2): the rasterizer input.
 
-    The JAX package's ``face_aa_verts_ccw``; autograd carries its cotangent
-    back to ``verts_image`` (un-swapped, summed over incident faces).
+    The JAX package's ``face_aa_verts_ccw``: the forward is the gather and
+    the swap of ``_face_aa_verts_impl``; the backward
+    ``aa_cotangent_to_verts_image`` carries the cotangent back to
+    ``verts_image`` (un-swapped, summed over incident faces).
     """
-    return _face_aa_verts_impl(verts_image, faces)[0]
+    return _FaceAAVertsCCW.apply(verts_image, faces)
 
 
 def ray_tri_intersection(ray_o, ray_d, p0, p1, p2):

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -55,14 +56,18 @@ def _nvcc() -> str:
 class Kernel:
     """One CUDA source file, its build, its C launch function and its count."""
 
-    def __init__(self, name: str, source: str, argtypes, extra_flags=()):
+    def __init__(self, name: str, source: str, argtypes, extra_flags=(),
+                 companions=()):
         self.name = name
         self.source = CSRC / source
         self.argtypes = list(argtypes)
         self.flags = NVCC_FLAGS + tuple(extra_flags)
+        # Kernels that every caller of this one also launches: built with it.
+        self.companions = tuple(companions)
         self.launches = 0
         self.build_log = ""
         self._lib = None
+        self._lock = threading.Lock()
 
     def library_path(self) -> Path:
         # The name hashes the source, every header beside it and the flags.
@@ -73,11 +78,27 @@ class Kernel:
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
-        """Compile with nvcc unless the library exists; return its path.
+        """Compile with nvcc unless the library exists, and the companions
+        at the same time; return the library's path.
 
         nvcc writes a temporary file that is then renamed, so an interrupted
-        build never leaves a partial library behind.
+        build never leaves a partial library behind; two threads that build
+        one kernel take turns, and the second finds the library built.
         """
+        if not self.companions:
+            return self._build()
+        with ThreadPoolExecutor(len(self.companions)) as pool:
+            others = [pool.submit(k.build) for k in self.companions]
+            out = self._build()
+            for fut in others:
+                fut.result()
+        return out
+
+    def _build(self) -> Path:
+        with self._lock:
+            return self._compile()
+
+    def _compile(self) -> Path:
         out = self.library_path()
         if out.exists():
             return out
@@ -163,8 +184,20 @@ COMPOSITE_FWD = Kernel("composite_fwd", "composite_fwd.cu", [
     P,                    # stream
 ], extra_flags=("-fmad=false",))
 
+# grad_reduce, the reduction of composite_bwd's per-entry records to the
+# rasterizer's input gradients (its second kernel, the AA corners' backward,
+# is CORNER_REDUCE below). It only adds, so no flag changes its rounding.
+GRAD_REDUCE = Kernel("grad_reduce", "grad_reduce.cu", [
+    P, L,                 # gradient records, R
+    P, P, P, P, I,        # entry_bf, tile_starts, tile_counts, nc_tile, tiles
+    P, I, I, I,           # faces, B, F, P
+    P, P, P, P, P,        # d_vert8 (P, 8), d_op, d_vndc, d_int, d_aa
+    P,                    # stream
+])
+
 # composite_bwd replays composite_fwd's blend and must take its decisions bit
-# for bit: same shared header (pair_math.cuh), same flags.
+# for bit: same shared header (pair_math.cuh), same flags. Its records go to
+# grad_reduce, which is built with it.
 COMPOSITE_BWD = Kernel("composite_bwd", "composite_bwd.cu", [
     P, L,                 # records, R
     P, P, P,              # tile_starts, tile_counts, nc_tile
@@ -174,7 +207,7 @@ COMPOSITE_BWD = Kernel("composite_bwd", "composite_bwd.cu", [
     I, I, I, I, I,        # B, H, W, gx, gy
     F, F,                 # tau, 1 - tau
     P, P,                 # out, stream
-], extra_flags=("-fmad=false",))
+], extra_flags=("-fmad=false",), companions=(GRAD_REDUCE,))
 
 # peel is built without FMA contraction so that its hit tests round every
 # operation as its plain version does.
@@ -260,10 +293,19 @@ _TIERED_ARGTYPES = [
 PEEL_WIDE = Instance("peel_wide", PEEL, "peel_tiered_launch", _TIERED_ARGTYPES)
 PEEL_DEEP = Instance("peel_deep", PEEL, "peel_tiered_launch", _TIERED_ARGTYPES)
 
-KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD, PEEL, QUAD_MAP, BIN_EMIT)
-# Everything with a launch count: the built kernels and the peel's wide and
-# deep ones.
-COUNTED = KERNELS + (PEEL_WIDE, PEEL_DEEP)
+# grad_reduce.cu's second kernel: the AA corners' cotangent un-swapped and
+# added onto the screen-space vertices (geometry.face_aa_verts_ccw's backward).
+CORNER_REDUCE = Instance("corner_reduce", GRAD_REDUCE, "corner_reduce_launch", [
+    P, P, P, L,           # g (B, F, 3, 2), neg (B, F), faces, corners B*F*3
+    I, I,                 # F, P
+    P, P,                 # d_image (B, P, 2), stream
+])
+
+KERNELS = (PACK_STREAM, COMPOSITE_FWD, COMPOSITE_BWD, PEEL, QUAD_MAP, BIN_EMIT,
+           GRAD_REDUCE)
+# Everything with a launch count: the built kernels, the peel's wide and
+# deep ones and the corner reduction.
+COUNTED = KERNELS + (PEEL_WIDE, PEEL_DEEP, CORNER_REDUCE)
 
 
 def build_all() -> None:

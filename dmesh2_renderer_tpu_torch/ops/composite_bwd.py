@@ -15,9 +15,14 @@ in step, like the plain forward, and shares its per-pair arithmetic
 (``composite_fwd.pair_quantities``), so the replay takes the forward's blend
 decisions.
 
-``scatter_entry_grads`` reduces the records to the six input gradients with
-``index_add_``: the JAX package's sorts and segmented scans exist only
-because scatters are slow on the TPU.
+``reduce_entry_grads`` reduces the records of the contributing prefixes to
+the six input gradients: on CUDA tensors ``csrc/grad_reduce.cu`` adds each
+record once, in place, to its destinations with atomics (no mask, no
+compaction, no host sync), so the backward's table needs no zeros outside
+the prefixes; on CPU tensors its plain version sums with ``index_add_``.
+``scatter_entry_grads`` is the plain reduction of any rows that a mask
+keeps, the JAX function's counterpart. The JAX package's sorts and
+segmented scans exist only because scatters are slow on the TPU.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from dmesh2_renderer_tpu_torch.aa import tri_box_edge_weights_xy
 from dmesh2_renderer_tpu_torch.geometry import clamp_bary_uv_grad
 from dmesh2_renderer_tpu_torch.ops import _kernels
 from dmesh2_renderer_tpu_torch.ops.binning import (
-    REC_AA, REC_C, REC_IN, REC_OP, REC_V, REC_Z, tile_grid_size,
+    REC_AA, REC_C, REC_IN, REC_OP, REC_V, REC_Z, contributing_mask,
+    tile_grid_size,
 )
 from dmesh2_renderer_tpu_torch.ops.composite_fwd import (
     pair_quantities, tile_pixels, tile_planes,
@@ -267,8 +273,23 @@ def composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
         patch_min: (B, 2) int32.
       color (B, H, W, 3), depth, final_t, prev_t (B, H, W): forward outputs.
       g_color, g_depth, g_final_t: their cotangents, same shapes.
-    Returns the (R, 32) f32 gradient records.
+    Returns the (R, 32) f32 gradient records, zero outside the contributing
+    prefixes.
     """
+    return _composite_backward(
+        records, tile_starts, tile_counts, nc_tile, ray_o_cam, ray_d, background,
+        patch_min, color, depth, final_t, prev_t, g_color, g_depth, g_final_t,
+        patch_width, patch_height, aa_temperature, torch.zeros)
+
+
+def _composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
+                        ray_d, background, patch_min, color, depth, final_t,
+                        prev_t, g_color, g_depth, g_final_t, patch_width,
+                        patch_height, aa_temperature, alloc):
+    """``composite_backward`` with the kernel's (R, 32) table from
+    ``alloc``: ``torch.empty`` leaves every row outside the contributing
+    prefixes unset, which ``reduce_entry_grads`` never reads (the kernel
+    writes each prefix row whole)."""
     dev = records.device
     args = (records, tile_starts, tile_counts, nc_tile, ray_o_cam, ray_d,
             background, patch_min, color, depth, final_t, prev_t, g_color,
@@ -302,7 +323,7 @@ def composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
         ("g_final_t", g_final_t, f32, pix),
     ])
     _kernels.check_aligned("records", records)
-    out = torch.zeros((r, GRAD_RECORD_WIDTH), dtype=f32, device=dev)
+    out = alloc((r, GRAD_RECORD_WIDTH), dtype=f32, device=dev)
     if n_tiles == 0 or r == 0:
         return out
     tau = float(aa_temperature)
@@ -325,13 +346,13 @@ def composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
 
 def scatter_entry_grads(grad_records, entry_bf, faces, n_verts: int,
                         n_batch: int, keep=None):
-    """Reduce per-entry gradient records to the six input gradients.
+    """Reduce per-entry gradient records to the six input gradients (plain).
 
     Rows outside ``keep`` (the contributing mask of
     ``binning.contributing_mask``; None keeps every row) and sentinel rows
-    (``entry_bf == B*F``) are dropped; the rest are summed per (batch, face)
-    with ``index_add_``, then per face over the batch and onto the shared
-    vertices. Every contributing row is reduced: nothing is dropped for
+    (``entry_bf == B*F``) are dropped; the rest are gathered, summed per
+    (batch, face) with ``index_add_``, then per face over the batch and onto
+    the shared vertices. Every kept row is reduced: nothing is dropped for
     capacity. On CUDA ``index_add_`` sums with atomics, so the order of the
     additions, and so the last bits of a sum, change from run to run.
 
@@ -349,6 +370,12 @@ def scatter_entry_grads(grad_records, entry_bf, faces, n_verts: int,
     d_face = torch.zeros((bf, GRAD_COLUMNS), dtype=torch.float32,
                          device=grad_records.device)
     d_face.index_add_(0, entry_bf[rows].long(), grad_records[rows, :GRAD_COLUMNS])
+    return _face_rows_to_inputs(d_face, faces, n_verts, n_batch)
+
+
+def _face_rows_to_inputs(d_face, faces, n_verts: int, n_batch: int):
+    """(B*F, 29) per-(batch, face) sums -> scatter_entry_grads' six outputs."""
+    f = faces.shape[0]
     d_face = d_face.reshape(n_batch, f, GRAD_COLUMNS)
     d_fsum = d_face.sum(dim=0)                                  # (F, 29)
 
@@ -364,3 +391,87 @@ def scatter_entry_grads(grad_records, entry_bf, faces, n_verts: int,
     d_int = d_face[:, :, REC_IN]
     d_aa = d_face[:, :, REC_AA:REC_AA + 6].reshape(n_batch, f, 3, 2)
     return d_verts, d_vcolor, d_op, d_vndc_z, d_int, d_aa
+
+
+def reduce_entry_grads_plain(grad_records, entry_bf, tile_starts, tile_counts,
+                             nc_tile, faces, n_verts: int, n_batch: int):
+    """Plain version of ``reduce_entry_grads`` (any device).
+
+    ``contributing_mask`` and ``scatter_entry_grads``' sums, with the rows
+    outside the prefixes and the sentinel rows sent to one extra row that is
+    dropped, in place of a compaction: no host sync. Rows outside the
+    prefixes are read but never reach an output.
+    """
+    r = grad_records.shape[0]
+    bf = n_batch * faces.shape[0]
+    keep, _ = contributing_mask(tile_starts, tile_counts, nc_tile, r)
+    target = torch.where(keep & (entry_bf < bf), entry_bf.long(), bf)
+    d_face = torch.zeros((bf + 1, GRAD_COLUMNS), dtype=torch.float32,
+                         device=grad_records.device)
+    d_face.index_add_(0, target, grad_records[:, :GRAD_COLUMNS])
+    d_verts, d_vcolor, d_op, d_vndc_z, d_int, d_aa = _face_rows_to_inputs(
+        d_face[:bf], faces, n_verts, n_batch)
+    d_vndc = d_vndc_z.new_zeros((n_batch, n_verts, 3))
+    d_vndc[..., 2] = d_vndc_z
+    return d_verts, d_vcolor, d_op, d_vndc, d_int, d_aa
+
+
+def reduce_entry_grads(grad_records, entry_bf, tile_starts, tile_counts, nc_tile,
+                       faces, n_verts: int, n_batch: int):
+    """Reduce the contributing prefixes' gradient records to the six input
+    gradients.
+
+    Each tile's first min(count, nc_tile) rows (composite_backward's
+    prefix) are summed onto their (batch, face), the face's vertices and
+    its NDC z; sentinel rows and every row outside the prefixes add
+    nothing, and are never read on CUDA. Every contributing row is reduced:
+    nothing is dropped for capacity. On CUDA tensors ``csrc/grad_reduce.cu``
+    adds with atomics, in an order, and so with last bits, that change from
+    run to run; on CPU tensors ``reduce_entry_grads_plain``.
+
+    Args:
+      grad_records: (R, 32) f32; entry_bf: (R,) int32; tile_starts,
+        tile_counts, nc_tile: (T,) int32; faces: (F, 3) int32.
+    Returns (d_verts (P, 3), d_verts_color (P, 3), d_faces_opacity (F,),
+    d_verts_ndc (B, P, 3) (x and y zero), d_faces_intense (B, F),
+    d_aa_face_verts (B, F, 3, 2)).
+    """
+    dev = grad_records.device
+    args = (grad_records, entry_bf, tile_starts, tile_counts, nc_tile, faces)
+    if dev.type == "cpu":
+        return reduce_entry_grads_plain(*args, n_verts, n_batch)
+    r = grad_records.shape[0]
+    n_tiles = tile_starts.shape[0]
+    f = faces.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _kernels.check_inputs(dev, [
+        ("grad_records", grad_records, f32, (r, GRAD_RECORD_WIDTH)),
+        ("entry_bf", entry_bf, i32, (r,)),
+        ("tile_starts", tile_starts, i32, (n_tiles,)),
+        ("tile_counts", tile_counts, i32, (n_tiles,)),
+        ("nc_tile", nc_tile, i32, (n_tiles,)),
+        ("faces", faces, i32, (f, 3)),
+    ])
+    _kernels.check_aligned("grad_records", grad_records)
+    kw = dict(dtype=f32, device=dev)
+    # Each vertex's position and colour gradients, each padded to a float4:
+    # the kernel adds them with vector atomics.
+    d_vert8 = torch.zeros((n_verts, 8), **kw)
+    d_op = torch.zeros((f,), **kw)
+    d_vndc = torch.zeros((n_batch, n_verts, 3), **kw)
+    d_int = torch.zeros((n_batch, f), **kw)
+    d_aa = torch.zeros((n_batch, f, 3, 2), **kw)
+    if n_tiles and r and f:
+        lib = _kernels.GRAD_REDUCE.load()
+        P = ctypes.c_void_p
+        with torch.cuda.device(dev):
+            err = lib.grad_reduce_launch(
+                P(grad_records.data_ptr()), r, P(entry_bf.data_ptr()),
+                P(tile_starts.data_ptr()), P(tile_counts.data_ptr()),
+                P(nc_tile.data_ptr()), n_tiles, P(faces.data_ptr()), n_batch, f,
+                n_verts, *(P(t.data_ptr()) for t in (d_vert8, d_op, d_vndc, d_int, d_aa)),
+                _kernels.current_stream(dev),
+            )
+        _kernels.GRAD_REDUCE.launched(err)
+    return (d_vert8[:, 0:3].contiguous(), d_vert8[:, 4:7].contiguous(), d_op, d_vndc,
+            d_int, d_aa)

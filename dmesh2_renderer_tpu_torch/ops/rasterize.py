@@ -8,7 +8,8 @@ tile ranges, the per-tile contributor ranks and the per-pixel outputs for
 the backward. The backward runs the backward compositor (the kernel on CUDA
 tensors, its plain version on CPU tensors) and reduces its per-entry
 records to the gradients of the first six inputs, as the JAX op does. A
-backward on CUDA tensors launches ``csrc/composite_bwd.cu`` or raises.
+backward on CUDA tensors launches ``csrc/composite_bwd.cu`` and
+``csrc/grad_reduce.cu`` or raises.
 """
 
 from __future__ import annotations
@@ -18,12 +19,9 @@ from typing import NamedTuple
 import torch
 
 from dmesh2_renderer_tpu_torch.ops import reference as ref_ops
-from dmesh2_renderer_tpu_torch.ops.binning import (
-    Binning, bin_faces, contributing_mask, pack_stream,
-)
-from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
-    composite_backward, scatter_entry_grads,
-)
+from dmesh2_renderer_tpu_torch.ops import composite_bwd
+from dmesh2_renderer_tpu_torch.ops.binning import Binning, bin_faces, pack_stream
+from dmesh2_renderer_tpu_torch.ops.composite_bwd import reduce_entry_grads
 from dmesh2_renderer_tpu_torch.ops.composite_fwd import composite_forward
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
 from dmesh2_renderer_tpu_torch.utils.profiling import span
@@ -59,6 +57,14 @@ def build_stream(verts, verts_color, faces_opacity, verts_ndc, faces_intense,
                               verts_ndc, faces_opacity, faces_intense,
                               aa_face_verts)
     return binning, records
+
+
+def composite_backward(*args):
+    """``composite_bwd.composite_backward`` (same arguments) with the (R, 32)
+    table left uninitialised outside the contributing prefixes, which
+    ``reduce_entry_grads`` never reads: the kernel writes each prefix row
+    whole. The backward calls it by this name."""
+    return composite_bwd._composite_backward(*args, torch.empty)
 
 
 class Rasterize(torch.autograd.Function):
@@ -115,14 +121,11 @@ class Rasterize(torch.autograd.Function):
                     tau,
                 )
             with span("scatter"):
-                keep, _ = contributing_mask(starts, counts, nc_tile,
-                                            entry_bf.shape[0])
-                d_verts, d_vcolor, d_op, d_vndc_z, d_int, d_aa = \
-                    scatter_entry_grads(grad_records, entry_bf, faces, n_verts,
-                                        ndc_shape[0], keep)
-                # NDC x/y reach the loss only through aa_face_verts.
-                d_vndc = d_vndc_z.new_zeros(ndc_shape)
-                d_vndc[..., 2] = d_vndc_z
+                # NDC x/y reach the loss only through aa_face_verts: d_vndc's
+                # x and y are zero.
+                d_verts, d_vcolor, d_op, d_vndc, d_int, d_aa = reduce_entry_grads(
+                    grad_records, entry_bf, starts, counts, nc_tile, faces,
+                    n_verts, ndc_shape[0])
         return (d_verts, d_vcolor, d_op, d_vndc, d_int, d_aa,
                 None, None, None, None, None, None, None, None, None)
 

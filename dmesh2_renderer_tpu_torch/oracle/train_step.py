@@ -138,7 +138,8 @@ def train_step(params: dict, faces, faces_intense, mv, proj, target_color, backg
         opacity = params["faces_opacity"].detach()
         with torch.enable_grad():
             ndc, image = G.compute_verts_ndc_image(verts, mv, proj, width, height)
-            aa = G.face_aa_verts_ccw(image, faces)
+            # The plain gather, which autograd differentiates.
+            aa = G._face_aa_verts_impl(image, faces)[0]
         with torch.no_grad():
             ray_o, ray_d = G.init_rays(mv, proj, width, height)
             ray_o_cam = ray_o[:, 0, 0, :].contiguous()

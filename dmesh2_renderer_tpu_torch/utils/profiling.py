@@ -7,7 +7,7 @@ The pipeline's stages have one set of names, used both as the keys of
 corners, ``face_depth01``, the ray selection and the camera gathers),
 ``binning`` (``bin_faces``), ``pack`` (``pack_stream``), ``fwd_kernel``
 (``composite_forward``), ``bwd_kernel`` (``composite_backward``),
-``scatter`` (``contributing_mask`` and ``scatter_entry_grads``) and, in the
+``scatter`` (``reduce_entry_grads``) and, in the
 depth peel, ``peel`` (``peel_layers``). Around them are the roots
 ``render`` (``Renderer.forward``, ``functional.render_partial`` and
 ``render_partial_unchecked``),
@@ -136,7 +136,7 @@ def profile_render(
     ``binning`` (``binning.bin_faces``), ``pack`` (``binning.pack_stream``),
     ``fwd_kernel`` (``composite_forward``), ``bwd_kernel``
     (``composite_backward`` with unit colour and depth cotangents) and
-    ``scatter`` (``contributing_mask`` + ``scatter_entry_grads``).
+    ``scatter`` (``reduce_entry_grads``).
 
     Returns a dict with those per-stage milliseconds (``stages_ms``), the
     end-to-end forward (``e2e_fwd_ms``, ``functional.render``) and forward
@@ -149,11 +149,9 @@ def profile_render(
     from dmesh2_renderer_tpu_torch import geometry as G
     from dmesh2_renderer_tpu_torch.functional import render
     from dmesh2_renderer_tpu_torch.ops import reference as ref_ops
-    from dmesh2_renderer_tpu_torch.ops.binning import (
-        bin_faces, contributing_mask, pack_stream,
-    )
+    from dmesh2_renderer_tpu_torch.ops.binning import bin_faces, pack_stream
     from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
-        composite_backward, scatter_entry_grads,
+        composite_backward, reduce_entry_grads,
     )
     from dmesh2_renderer_tpu_torch.ops.composite_fwd import composite_forward
     from dmesh2_renderer_tpu_torch.ops.rasterize import build_stream
@@ -233,14 +231,12 @@ def profile_render(
         records, binning.tile_starts, binning.tile_counts, nc_tile, iters=iters)
     say("composite_backward", t_bwd)
 
-    def scatter_stage(gr, e, st, ct, nc):
-        keep, _ = contributing_mask(st, ct, nc, e.shape[0])
-        return scatter_entry_grads(gr, e, faces, verts.shape[0], b, keep)
-
-    _, t_scatter = time_fn(scatter_stage, grad_records, binning.entry_bf,
-                           binning.tile_starts, binning.tile_counts, nc_tile,
-                           iters=iters)
-    say("scatter_entry_grads", t_scatter)
+    _, t_scatter = time_fn(
+        lambda gr, e, st, ct, nc: reduce_entry_grads(gr, e, st, ct, nc, faces,
+                                                     verts.shape[0], b),
+        grad_records, binning.entry_bf, binning.tile_starts, binning.tile_counts,
+        nc_tile, iters=iters)
+    say("reduce_entry_grads", t_scatter)
 
     def forward(verts, verts_color, faces_opacity, faces_intense):
         c, d, _ = render(verts, faces, verts_color, faces_opacity, faces_intense,

@@ -315,7 +315,8 @@ def test_wide_instance_counts_its_launches_apart():
     assert _kernels.PEEL_WIDE.launch == _kernels.PEEL_DEEP.launch == "peel_tiered_launch"
     assert _kernels.PEEL_WIDE.argtypes == _kernels.PEEL_DEEP.argtypes
     assert _kernels.COUNTED == _kernels.KERNELS + (_kernels.PEEL_WIDE,
-                                                   _kernels.PEEL_DEEP)
+                                                   _kernels.PEEL_DEEP,
+                                                   _kernels.CORNER_REDUCE)
     before = (_kernels.PEEL.launches, _kernels.PEEL_WIDE.launches)
     _kernels.PEEL_WIDE.launched(0)
     assert (_kernels.PEEL.launches, _kernels.PEEL_WIDE.launches) == \

@@ -25,8 +25,8 @@ CALLS = {
                  "sync/patch_origins", "sync/image_scale", "sync/overflow_check"},
                 {"view_indices": 1, "patch_origins": 1, "image_scale": 1,
                  "overflow_check": 1}),
-    "backward": ("backward", {"bwd_kernel", "scatter", "sync/scatter_rows"},
-                 {"scatter_rows": 1}),
+    # The reduction walks the contributing prefixes in place: no sync.
+    "backward": ("backward", {"bwd_kernel", "scatter"}, {}),
     "generate": ("generate",
                  {"validate", "prep", "binning", "peel", "sync/face_indices",
                   "sync/view_indices", "sync/image_scale"},

@@ -165,8 +165,8 @@ def test_step_counts_render_stats_syncs(cap, reads):
     """The capacity check reads ``num_truncated``, and with
     ``grad_compact_capacity`` set ``num_grad_contributing`` too: each read
     is one pass through the sync site ``render_stats``. The step's other
-    sites: the projection's ``image_scale`` and the reduction's
-    ``scatter_rows``."""
+    site: the projection's ``image_scale`` (the gradient reduction has
+    none)."""
     params, faces, inputs = _scene(n_faces=20)
     config = RasterConfig(**{**CFG.__dict__, "grad_compact_capacity": cap})
     trainer = _trainer(faces, config)
@@ -175,8 +175,7 @@ def test_step_counts_render_stats_syncs(cap, reads):
     reset_counters()
     for _ in range(2):
         state, _ = trainer.step(state, *inputs)
-    assert counters()["syncs"] == {"render_stats": 2 * reads, "image_scale": 2,
-                                   "scatter_rows": 2}
+    assert counters()["syncs"] == {"render_stats": 2 * reads, "image_scale": 2}
 
 
 def test_step_opens_its_ranges_once():
