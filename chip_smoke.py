@@ -672,8 +672,8 @@ def compare_backward(kernel_rec, plain_rec, label):
 
 def in_prefixes(bwd_args, table):
     """The backward compositor's table with every row outside the
-    contributing prefixes zeroed: the backward leaves those rows unset
-    (``ops/rasterize.py``), and nothing reads them."""
+    contributing prefixes zeroed: ``composite_backward`` leaves those rows
+    unset on the card, and nothing reads them."""
     from dmesh2_renderer_tpu_torch.ops.binning import contributing_mask
 
     keep, _ = contributing_mask(bwd_args[1], bwd_args[2], bwd_args[3], table.shape[0])
@@ -911,7 +911,7 @@ def phase_stress(dev, sz: Sizes, report):
         ragged += int(((n_loop > 64) & (n_loop % 64 != 0) & (n_loop % 8 != 0)).sum())
         stopped += int((out[2] < 1e-4).sum())
         bwd_args = (*args[:3], out[5], *args[3:7], *out[:4], *cot, pw, ph, tau)
-        grads = [composite_backward(*bwd_args) for _ in range(2)]
+        grads = [in_prefixes(bwd_args, composite_backward(*bwd_args)) for _ in range(2)]
         work = {}
         plain = composite_backward_plain(*bwd_args, work=work)
         sync()
@@ -1450,7 +1450,8 @@ def phase_main_path(dev, sz: Sizes, report, kernels):
     from dmesh2_renderer_tpu_torch.ops.composite_bwd import composite_backward
     bwd_args, bwd_out = calls["composite_backward"]
     bwd_out = in_prefixes(bwd_args, bwd_out)
-    same = all(torch.equal(bwd_out, composite_backward(*bwd_args)) for _ in range(2))
+    same = all(torch.equal(bwd_out, in_prefixes(bwd_args, composite_backward(*bwd_args)))
+               for _ in range(2))
     print(f"  composite_bwd on the {main_label} inputs, three runs: identical bits {same}")
     if not same:
         raise AssertionError("composite_bwd is not deterministic")

@@ -1,11 +1,13 @@
 """Functional full-frame entry points.
 
 Port of ``dmesh2_renderer_tpu/functional.py``: ``render_partial``,
-``render`` and ``render_banded`` (the differentiable renderer) and
-``peel_pipeline`` / ``generate_layers`` (the depth peel). Rays are computed
-per call, so the whole render, and its gradient, is a function of its
-inputs. Inputs may be numpy arrays or tensors; they are moved to ``device``
-(the card unless the caller passes ``device="cpu"``).
+``render`` and ``render_banded`` (the differentiable renderer, whose body
+``render_stages`` ``Renderer.forward`` shares) and ``peel_pipeline`` /
+``generate_layers`` (the depth peel, whose body ``peel_stages``
+``LayeredRenderer.generate`` shares). Rays are computed per call, so the
+whole render, and its gradient, is a function of its inputs. Inputs may be
+numpy arrays or tensors; they are moved to ``device`` (the card unless the
+caller passes ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -81,40 +83,62 @@ def render_partial_unchecked(
 def _render_partial(verts, faces, verts_color, faces_opacity, faces_intense,
                     mv, proj, background, width, height, aa_temperature,
                     config, patch_origin, patch_shape, device):
-    config = config or RasterConfig()
+    """The functional front end's own work, the window's rays from
+    ``init_rays`` and its origins, then :func:`render_stages`."""
     if (patch_origin is None) != (patch_shape is None):
         raise ValueError(
             "patch_origin and patch_shape must be passed together "
             f"(got patch_origin={patch_origin!r}, patch_shape={patch_shape!r})"
         )
     dev = resolve_device(device)
-
-    def f32(x):
-        return to_device(x, torch.float32, dev, "inputs")
-
     with span("prep"):
-        verts, verts_color, faces_opacity, faces_intense, mv, proj, background = (
-            f32(x) for x in (verts, verts_color, faces_opacity, faces_intense, mv,
-                             proj, background))
-        faces = to_device(faces, torch.int32, dev, "inputs").contiguous()
+        mv = to_device(mv, torch.float32, dev, "inputs")
+        proj = to_device(proj, torch.float32, dev, "inputs")
         b = mv.shape[0]
         ray_o, ray_d = G.init_rays(mv, proj, width, height,
                                    origin=patch_origin, shape=patch_shape)
-        verts_ndc, verts_image = G.compute_verts_ndc_image(verts, mv, proj, width,
-                                                           height)
-        aa_verts = G.face_aa_verts_ccw(verts_image, faces)
         if patch_origin is None:
             patch_min = torch.zeros((b, 2), dtype=torch.int32, device=dev)
-            pw, ph = width, height
         else:
             patch_min = to_device([list(patch_origin)] * b, torch.int32, dev,
                                   "patch_origins")
-            ph, pw = patch_shape
+    return render_stages(
+        verts, faces, verts_color, faces_opacity, faces_intense, mv, proj,
+        background, patch_min, ray_o[:, 0, 0, :], ray_d, width, height,
+        aa_temperature, config, dev)
+
+
+def render_stages(verts, faces, verts_color, faces_opacity, faces_intense,
+                  mv, proj, background, patch_min, ray_o_cam, ray_d,
+                  width: int, height: int, aa_temperature: float,
+                  config: RasterConfig | None, device: torch.device):
+    """The render body of :func:`render_partial` and ``Renderer.forward``,
+    for entry points that open the ``render`` range and choose the views'
+    cameras and rays themselves.
+
+    ``mv``, ``proj`` (B, 4, 4), ``patch_min`` (B, 2) int32, ``ray_o_cam``
+    (B, 3) and ``ray_d`` (B, ph, pw, 3) are the views' tensors on
+    ``device``; the scene arguments are converted here. Runs the
+    screen-space stage (``geometry.project_faces``) and the rasterize op
+    over the (ph, pw) windows of the (width, height) frame. Returns (color,
+    depth_raw, final_t, aux).
+    """
+    config = config or RasterConfig()
+
+    def f32(x):
+        return to_device(x, torch.float32, device, "inputs")
+
+    with span("prep"):
+        verts, verts_color, faces_opacity, faces_intense, background = (
+            f32(x) for x in (verts, verts_color, faces_opacity, faces_intense,
+                             background))
+        faces = to_device(faces, torch.int32, device, "inputs").contiguous()
+        verts_ndc, aa_verts = G.project_faces(verts, faces, mv, proj, width,
+                                              height)
+    ph, pw = ray_d.shape[1:3]
     rasterize = make_rasterizer(pw, ph, float(aa_temperature), config)
-    return rasterize(
-        verts, verts_color, faces_opacity, verts_ndc, faces_intense, aa_verts,
-        faces, background, patch_min, ray_o[:, 0, 0, :], ray_d,
-    )
+    return rasterize(verts, verts_color, faces_opacity, verts_ndc, faces_intense,
+                     aa_verts, faces, background, patch_min, ray_o_cam, ray_d)
 
 
 def render(
@@ -222,11 +246,9 @@ def peel_stages(verts, faces, faces_existence, mv, proj, ray_o, ray_d,
                                                           ray_d))
         exist = (to_device(faces_existence, None, dev, "inputs") > 0).to(torch.int32)
         b = mv.shape[0]
-        verts_ndc, verts_image = G.compute_verts_ndc_image(verts, mv, proj, width,
-                                                           height)
         # The CCW screen triangles: face_aa_triangles(...).verts of the JAX
         # pipeline, without the edge tables it does not read.
-        tris = G.face_aa_verts_ccw(verts_image, faces)
+        verts_ndc, tris = G.project_faces(verts, faces, mv, proj, width, height)
         _, min_depth, _, alive = face_depth01(verts_ndc, faces)
     with span("binning"):
         binning = bin_faces(

@@ -1,11 +1,12 @@
 """Camera / projection / screen-space geometry (plain PyTorch).
 
 Port of ``dmesh2_renderer_tpu/geometry.py``: vertex projection, per-pixel
-rays, patch ray selection, the CCW screen-triangle precompute,
-Moeller-Trumbore and the 7-region barycentric clamp, and the analytic
-Jacobians the backward compositor uses (clamp and Moeller-Trumbore). Every
-function works on tensors of any device and keeps the JAX package's
-layouts, so the tests compare like with like.
+rays, patch ray selection, the CCW screen-triangle precompute (with the
+projection, ``project_faces``: the screen-space stage every entry point
+runs), Moeller-Trumbore and the 7-region barycentric clamp, and the
+analytic Jacobians the backward compositor uses (clamp and
+Moeller-Trumbore). Every function works on tensors of any device and keeps
+the JAX package's layouts, so the tests compare like with like.
 
 ``face_aa_verts_ccw`` keeps the JAX package's hand-written backward
 (``aa_cotangent_to_verts_image``: un-swap, then sum onto the vertices). The
@@ -264,6 +265,17 @@ def face_aa_verts_ccw(verts_image, faces):
     ``verts_image`` (un-swapped, summed over incident faces).
     """
     return _FaceAAVertsCCW.apply(verts_image, faces)
+
+
+def project_faces(verts, faces, mv, proj, width, height):
+    """The screen-space stage of every render and peel: project the
+    vertices (:func:`compute_verts_ndc_image`), then build the CCW AA
+    corners (:func:`face_aa_verts_ccw`).
+
+    Returns verts_ndc (B, P, 3) and the corners (B, F, 3, 2).
+    """
+    verts_ndc, verts_image = compute_verts_ndc_image(verts, mv, proj, width, height)
+    return verts_ndc, face_aa_verts_ccw(verts_image, faces)
 
 
 def ray_tri_intersection(ray_o, ray_d, p0, p1, p2):

@@ -1,8 +1,10 @@
 """User-facing Renderer: the differentiable multi-view triangle renderer.
 
 Port of ``dmesh2_renderer_tpu/models/renderer.py``: hold a batch of cameras,
-precompute per-pixel rays once, and per call project vertices, build the
-screen-space AA triangles, slice patch rays, rasterize and remap depth.
+precompute per-pixel rays once, and per call gather the views' cameras,
+slice their patch rays, run the render body that ``functional.render_partial``
+runs (``functional.render_stages``: the screen-space stage and the
+rasterize op) and remap depth.
 ``loss.backward()`` through ``forward`` gives the JAX package's analytic
 gradients for ``verts``, ``verts_color``, ``faces_opacity`` and
 ``faces_intense`` (the backward compositor kernel on the card).
@@ -18,18 +20,17 @@ Differences from the JAX class:
 
 from __future__ import annotations
 
-import warnings
-
 import torch
 
 from dmesh2_renderer_tpu_torch import geometry as G
-from dmesh2_renderer_tpu_torch.ops.rasterize import make_rasterizer
+from dmesh2_renderer_tpu_torch.functional import render_stages
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
-from dmesh2_renderer_tpu_torch.utils.profiling import host_sync, span
+from dmesh2_renderer_tpu_torch.utils.profiling import span
 from dmesh2_renderer_tpu_torch.utils.validate import (
     check_cameras,
     check_patch_windows,
     check_render_args,
+    check_render_stats,
     resolve_device,
     to_device,
     valence_cache,
@@ -75,10 +76,6 @@ class Renderer:
         larger = nearer)."""
         dev = self.device
         pw, ph = int(patch_width), int(patch_height)
-
-        def f32(x):
-            return to_device(x, torch.float32, dev, "inputs")
-
         with span("render"):
             with span("validate"):
                 check_patch_windows(batch_mvp_idx, batch_patch_min, pw, ph,
@@ -93,58 +90,19 @@ class Renderer:
                 # class skips the guard.
                 valence_cache.check(faces, valence_cap(self.config), len(verts))
             with span("prep"):
-                batch_mvp_idx = to_device(batch_mvp_idx, torch.int64, dev,
-                                          "view_indices")
-                batch_patch_min = to_device(batch_patch_min, torch.int32, dev,
-                                            "patch_origins")
-                verts = f32(verts)
-                faces = to_device(faces, torch.int32, dev, "inputs").contiguous()
-                b_mv = self.mv[batch_mvp_idx]
-                b_proj = self.proj[batch_mvp_idx]
-                verts_ndc, verts_image = G.compute_verts_ndc_image(
-                    verts, b_mv, b_proj, self.width, self.height)
-                aa_verts = G.face_aa_verts_ccw(verts_image, faces)
-                ray_o, ray_d = G.select_rays(self.ray_o, self.ray_d, batch_mvp_idx,
-                                             batch_patch_min, pw, ph)
-                args = (verts, f32(verts_color), f32(faces_opacity), verts_ndc,
-                        f32(faces_intense), aa_verts, faces, f32(background),
-                        batch_patch_min, ray_o[:, 0, 0, :], ray_d)
-            rasterize = make_rasterizer(pw, ph, float(aa_temperature), self.config)
-            color, depth_raw, _final_t, aux = rasterize(*args)
+                idx = to_device(batch_mvp_idx, torch.int64, dev, "view_indices")
+                patch_min = to_device(batch_patch_min, torch.int32, dev,
+                                      "patch_origins")
+                b_mv, b_proj = self.mv[idx], self.proj[idx]
+                ray_o, ray_d = G.select_rays(self.ray_o, self.ray_d, idx,
+                                             patch_min, pw, ph)
+            color, depth_raw, _final_t, aux = render_stages(
+                verts, faces, verts_color, faces_opacity, faces_intense, b_mv,
+                b_proj, background, patch_min, ray_o[:, 0, 0, :], ray_d,
+                self.width, self.height, aa_temperature, self.config, dev)
             self.last_aux = aux
             if self.config.warn_on_overflow:
-                self._warn_on_overflow(aux)
+                check_render_stats(aux, self.config, "overflow_check")
             return color, 1.0 - (depth_raw + 1.0) / 2.0
 
     __call__ = forward
-
-    def _warn_on_overflow(self, aux):
-        with host_sync("overflow_check"):
-            truncated = int(aux.num_truncated)
-        if truncated > 0:
-            with host_sync("overflow_check"):
-                rendered = int(aux.num_rendered)
-            warnings.warn(
-                f"binning truncated {truncated} of {rendered} face instances; "
-                "the rendered image is missing geometry. Raise "
-                "RasterConfig.binning_capacity (or max_tiles_per_face "
-                "for faces spanning many tiles).",
-                RuntimeWarning,
-                stacklevel=3,
-            )
-        cap2 = self.config.grad_compact_capacity
-        if cap2:
-            with host_sync("overflow_check"):
-                contributing = int(aux.num_grad_contributing)
-            if contributing > cap2:
-                warnings.warn(
-                    f"{contributing} entries contribute "
-                    f"gradients but grad_compact_capacity={cap2}. This "
-                    "backward reduces every contributing entry, so its "
-                    "gradients stay right; the JAX package's backward would "
-                    "drop the excess with this config and give wrong "
-                    "gradients. Raise RasterConfig.grad_compact_capacity to "
-                    "keep the config portable.",
-                    RuntimeWarning,
-                    stacklevel=3,
-                )

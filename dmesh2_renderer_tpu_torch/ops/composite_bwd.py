@@ -4,8 +4,9 @@ Port of ``dmesh2_renderer_tpu/ops/pallas_bwd.py``. ``composite_backward``
 replays each tile's forward blend front to back and writes, for every entry
 of the tile's contributing prefix, a 29-column gradient record summed over
 the tile's 256 pixels, into that entry's row of an (R, 32) table (the JAX
-function's ``blocked=False`` layout; columns 29-31 and every row outside a
-contributing prefix are zero). The columns mirror the face record
+function's ``blocked=False`` layout; columns 29-31 are zero). On CUDA
+tensors every row outside the contributing prefixes is left unset; the
+plain version's are zero. The columns mirror the face record
 (``REC_*``): 9 vertex-position, 9 vertex-colour, opacity, intensity, 3
 vertex NDC-z and 6 AA-corner gradients.
 
@@ -19,10 +20,11 @@ decisions.
 the six input gradients: on CUDA tensors ``csrc/grad_reduce.cu`` adds each
 record once, in place, to its destinations with atomics (no mask, no
 compaction, no host sync), so the backward's table needs no zeros outside
-the prefixes; on CPU tensors its plain version sums with ``index_add_``.
-``scatter_entry_grads`` is the plain reduction of any rows that a mask
-keeps, the JAX function's counterpart. The JAX package's sorts and
-segmented scans exist only because scatters are slow on the TPU.
+the prefixes; on CPU tensors its plain version, ``contributing_mask`` and
+then ``scatter_entry_grads``, the JAX function's counterpart, which sums
+the rows a mask keeps with ``index_add_`` and sends the rest to a dropped
+row (no compaction, no host sync). The JAX package's sorts and segmented
+scans exist only because scatters are slow on the TPU.
 """
 
 from __future__ import annotations
@@ -44,7 +46,6 @@ from dmesh2_renderer_tpu_torch.ops.composite_fwd import (
 from dmesh2_renderer_tpu_torch.utils.config import (
     FACE_RECORD_WIDTH, GRAD_RECORD_WIDTH, T_EPS,
 )
-from dmesh2_renderer_tpu_torch.utils.profiling import host_sync
 
 # Columns of a gradient record that carry values (the rest are zero).
 GRAD_COLUMNS = 29
@@ -273,23 +274,13 @@ def composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
         patch_min: (B, 2) int32.
       color (B, H, W, 3), depth, final_t, prev_t (B, H, W): forward outputs.
       g_color, g_depth, g_final_t: their cotangents, same shapes.
-    Returns the (R, 32) f32 gradient records, zero outside the contributing
-    prefixes.
+    Returns the (R, 32) f32 gradient records. On CUDA tensors the kernel
+    writes each row of the contributing prefixes whole and leaves every
+    other row unset, as the backward wants (``reduce_entry_grads`` never
+    reads them): compare such tables through
+    ``binning.contributing_mask``. On CPU tensors the plain version's rows
+    outside the prefixes are zero.
     """
-    return _composite_backward(
-        records, tile_starts, tile_counts, nc_tile, ray_o_cam, ray_d, background,
-        patch_min, color, depth, final_t, prev_t, g_color, g_depth, g_final_t,
-        patch_width, patch_height, aa_temperature, torch.zeros)
-
-
-def _composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
-                        ray_d, background, patch_min, color, depth, final_t,
-                        prev_t, g_color, g_depth, g_final_t, patch_width,
-                        patch_height, aa_temperature, alloc):
-    """``composite_backward`` with the kernel's (R, 32) table from
-    ``alloc``: ``torch.empty`` leaves every row outside the contributing
-    prefixes unset, which ``reduce_entry_grads`` never reads (the kernel
-    writes each prefix row whole)."""
     dev = records.device
     args = (records, tile_starts, tile_counts, nc_tile, ray_o_cam, ray_d,
             background, patch_min, color, depth, final_t, prev_t, g_color,
@@ -323,7 +314,7 @@ def _composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
         ("g_final_t", g_final_t, f32, pix),
     ])
     _kernels.check_aligned("records", records)
-    out = alloc((r, GRAD_RECORD_WIDTH), dtype=f32, device=dev)
+    out = torch.empty((r, GRAD_RECORD_WIDTH), dtype=f32, device=dev)
     if n_tiles == 0 or r == 0:
         return out
     tau = float(aa_temperature)
@@ -350,11 +341,13 @@ def scatter_entry_grads(grad_records, entry_bf, faces, n_verts: int,
 
     Rows outside ``keep`` (the contributing mask of
     ``binning.contributing_mask``; None keeps every row) and sentinel rows
-    (``entry_bf == B*F``) are dropped; the rest are gathered, summed per
-    (batch, face) with ``index_add_``, then per face over the batch and onto
-    the shared vertices. Every kept row is reduced: nothing is dropped for
-    capacity. On CUDA ``index_add_`` sums with atomics, so the order of the
-    additions, and so the last bits of a sum, change from run to run.
+    (``entry_bf == B*F``) are sent to one extra row that is dropped; the
+    rest are summed per (batch, face) with ``index_add_``, then per face
+    over the batch and onto the shared vertices. No compaction, so no host
+    sync; a dropped row is read but never reaches an output. Every kept row
+    is reduced: nothing is dropped for capacity. On CUDA ``index_add_``
+    sums with atomics, so the order of the additions, and so the last bits
+    of a sum, change from run to run.
 
     Returns (d_verts (P, 3), d_verts_color (P, 3), d_faces_opacity (F,),
     d_verts_ndc_z (B, P), d_faces_intense (B, F), d_aa_face_verts
@@ -365,18 +358,11 @@ def scatter_entry_grads(grad_records, entry_bf, faces, n_verts: int,
     valid = entry_bf < bf
     if keep is not None:
         valid = valid & keep
-    with host_sync("scatter_rows"):
-        rows = valid.nonzero().squeeze(1)
-    d_face = torch.zeros((bf, GRAD_COLUMNS), dtype=torch.float32,
+    target = torch.where(valid, entry_bf.long(), bf)
+    d_face = torch.zeros((bf + 1, GRAD_COLUMNS), dtype=torch.float32,
                          device=grad_records.device)
-    d_face.index_add_(0, entry_bf[rows].long(), grad_records[rows, :GRAD_COLUMNS])
-    return _face_rows_to_inputs(d_face, faces, n_verts, n_batch)
-
-
-def _face_rows_to_inputs(d_face, faces, n_verts: int, n_batch: int):
-    """(B*F, 29) per-(batch, face) sums -> scatter_entry_grads' six outputs."""
-    f = faces.shape[0]
-    d_face = d_face.reshape(n_batch, f, GRAD_COLUMNS)
+    d_face.index_add_(0, target, grad_records[:, :GRAD_COLUMNS])
+    d_face = d_face[:bf].reshape(n_batch, f, GRAD_COLUMNS)
     d_fsum = d_face.sum(dim=0)                                  # (F, 29)
 
     fl = faces.long()
@@ -395,22 +381,12 @@ def _face_rows_to_inputs(d_face, faces, n_verts: int, n_batch: int):
 
 def reduce_entry_grads_plain(grad_records, entry_bf, tile_starts, tile_counts,
                              nc_tile, faces, n_verts: int, n_batch: int):
-    """Plain version of ``reduce_entry_grads`` (any device).
-
-    ``contributing_mask`` and ``scatter_entry_grads``' sums, with the rows
-    outside the prefixes and the sentinel rows sent to one extra row that is
-    dropped, in place of a compaction: no host sync. Rows outside the
-    prefixes are read but never reach an output.
-    """
-    r = grad_records.shape[0]
-    bf = n_batch * faces.shape[0]
-    keep, _ = contributing_mask(tile_starts, tile_counts, nc_tile, r)
-    target = torch.where(keep & (entry_bf < bf), entry_bf.long(), bf)
-    d_face = torch.zeros((bf + 1, GRAD_COLUMNS), dtype=torch.float32,
-                         device=grad_records.device)
-    d_face.index_add_(0, target, grad_records[:, :GRAD_COLUMNS])
-    d_verts, d_vcolor, d_op, d_vndc_z, d_int, d_aa = _face_rows_to_inputs(
-        d_face[:bf], faces, n_verts, n_batch)
+    """Plain version of ``reduce_entry_grads`` (any device):
+    ``contributing_mask``, then ``scatter_entry_grads``. No host sync."""
+    keep, _ = contributing_mask(tile_starts, tile_counts, nc_tile,
+                                grad_records.shape[0])
+    d_verts, d_vcolor, d_op, d_vndc_z, d_int, d_aa = scatter_entry_grads(
+        grad_records, entry_bf, faces, n_verts, n_batch, keep)
     d_vndc = d_vndc_z.new_zeros((n_batch, n_verts, 3))
     d_vndc[..., 2] = d_vndc_z
     return d_verts, d_vcolor, d_op, d_vndc, d_int, d_aa

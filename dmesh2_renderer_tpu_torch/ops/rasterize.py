@@ -9,7 +9,10 @@ the backward. The backward runs the backward compositor (the kernel on CUDA
 tensors, its plain version on CPU tensors) and reduces its per-entry
 records to the gradients of the first six inputs, as the JAX op does. A
 backward on CUDA tensors launches ``csrc/composite_bwd.cu`` and
-``csrc/grad_reduce.cu`` or raises.
+``csrc/grad_reduce.cu`` or raises. The op calls ``bin_faces``,
+``pack_stream``, ``composite_forward`` and ``composite_backward`` through
+this module's globals, so that a test or a benchmark can replace one by
+setting the module attribute.
 """
 
 from __future__ import annotations
@@ -19,9 +22,10 @@ from typing import NamedTuple
 import torch
 
 from dmesh2_renderer_tpu_torch.ops import reference as ref_ops
-from dmesh2_renderer_tpu_torch.ops import composite_bwd
 from dmesh2_renderer_tpu_torch.ops.binning import Binning, bin_faces, pack_stream
-from dmesh2_renderer_tpu_torch.ops.composite_bwd import reduce_entry_grads
+from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
+    composite_backward, reduce_entry_grads,
+)
 from dmesh2_renderer_tpu_torch.ops.composite_fwd import composite_forward
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
 from dmesh2_renderer_tpu_torch.utils.profiling import span
@@ -57,14 +61,6 @@ def build_stream(verts, verts_color, faces_opacity, verts_ndc, faces_intense,
                               verts_ndc, faces_opacity, faces_intense,
                               aa_face_verts)
     return binning, records
-
-
-def composite_backward(*args):
-    """``composite_bwd.composite_backward`` (same arguments) with the (R, 32)
-    table left uninitialised outside the contributing prefixes, which
-    ``reduce_entry_grads`` never reads: the kernel writes each prefix row
-    whole. The backward calls it by this name."""
-    return composite_bwd._composite_backward(*args, torch.empty)
 
 
 class Rasterize(torch.autograd.Function):

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import json
 import os
-import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -31,47 +30,8 @@ from dmesh2_renderer_tpu_torch.parallel.data_parallel import (
 )
 from dmesh2_renderer_tpu_torch.parallel.patch_parallel import make_grid_train_step
 from dmesh2_renderer_tpu_torch.utils.config import RasterConfig
-from dmesh2_renderer_tpu_torch.utils.profiling import host_sync, span
-
-
-def check_render_stats(stats: RenderStats, config: RasterConfig) -> None:
-    """Warn when a step's capacity counters signal truncation.
-
-    The functional-path analogue of ``Renderer.forward``'s warnings, with
-    the same wording: binning truncation drops geometry; a contributing
-    count above ``grad_compact_capacity`` is harmless here (the port's
-    backward reduces every contributing entry) but would make the JAX
-    package's backward drop gradient rows with this config. Costs one scalar
-    device-to-host read, two with ``grad_compact_capacity`` set: each a pass
-    through the host-sync site ``render_stats``.
-    """
-    with host_sync("render_stats"):
-        truncated = int(stats.num_truncated)
-    if truncated > 0:
-        warnings.warn(
-            f"binning truncated {truncated} face instances this step; the "
-            "rendered image is missing geometry. Raise "
-            "RasterConfig.binning_capacity (or max_tiles_per_face).",
-            RuntimeWarning,
-            stacklevel=3,
-        )
-    cap = config.grad_compact_capacity
-    if not cap:
-        return
-    with host_sync("render_stats"):
-        contributing = int(stats.num_grad_contributing)
-    if contributing > cap:
-        warnings.warn(
-            f"{contributing} entries contribute "
-            f"gradients but grad_compact_capacity={cap}. This "
-            "backward reduces every contributing entry, so its "
-            "gradients stay right; the JAX package's backward would "
-            "drop the excess with this config and give wrong "
-            "gradients. Raise RasterConfig.grad_compact_capacity to "
-            "keep the config portable.",
-            RuntimeWarning,
-            stacklevel=3,
-        )
+from dmesh2_renderer_tpu_torch.utils.profiling import span
+from dmesh2_renderer_tpu_torch.utils.validate import check_render_stats
 
 
 class TrainState(NamedTuple):

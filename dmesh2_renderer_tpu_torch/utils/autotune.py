@@ -1,10 +1,11 @@
 """Scene-driven capacity sizing for the static binning design.
 
 Port of ``dmesh2_renderer_tpu/utils/autotune.py``. The tile binning has
-static capacities; this module runs only the cheap geometry prefix
-(projection and tile rects, no kernels, no sort) on the actual scene and
-derives a ``RasterConfig`` whose capacities cover it with headroom, the
-same config the JAX package derives for the same scene.
+static capacities; this module runs only the cheap geometry prefix (the
+renderer's screen-space stage ``geometry.project_faces`` and the tile
+rects, no kernels, no sort) on the actual scene and derives a
+``RasterConfig`` whose capacities cover it with headroom, the same config
+the JAX package derives for the same scene.
 
 Typical use::
 
@@ -43,8 +44,7 @@ def scene_binning_stats(verts, faces, mv, proj, width: int, height: int,
 
     verts, mv, proj = f32(verts), f32(mv), f32(proj)
     faces = torch.as_tensor(faces, dtype=torch.int32, device=dev)
-    verts_ndc, verts_image = G.compute_verts_ndc_image(verts, mv, proj, width, height)
-    aa = G.face_aa_verts_ccw(verts_image, faces)
+    verts_ndc, aa = G.project_faces(verts, faces, mv, proj, width, height)
     _, _, _, alive = face_depth01(verts_ndc, faces)
     gx, gy = tile_grid_size(width, height)
     pm = torch.zeros((mv.shape[0], 2), dtype=torch.int32, device=dev)

@@ -3,16 +3,16 @@ and per-stage timing.
 
 The pipeline's stages have one set of names, used both as the keys of
 :func:`profile_render` and as the names of the profiler ranges that
-:func:`span` opens inside the entry points: ``prep`` (projection, the AA
-corners, ``face_depth01``, the ray selection and the camera gathers),
-``binning`` (``bin_faces``), ``pack`` (``pack_stream``), ``fwd_kernel``
-(``composite_forward``), ``bwd_kernel`` (``composite_backward``),
-``scatter`` (``reduce_entry_grads``) and, in the
+:func:`span` opens inside the entry points: ``prep`` (the screen-space
+stage ``geometry.project_faces``, ``face_depth01``, the ray selection and
+the camera gathers), ``binning`` (``bin_faces``), ``pack``
+(``pack_stream``), ``fwd_kernel`` (``composite_forward``), ``bwd_kernel``
+(``composite_backward``), ``scatter`` (``reduce_entry_grads``) and, in the
 depth peel, ``peel`` (``peel_layers``). Around them are the roots
 ``render`` (``Renderer.forward``, ``functional.render_partial`` and
-``render_partial_unchecked``),
-``generate`` (``LayeredRenderer.generate``, ``functional.generate_layers``,
-``peel_pipeline``) and ``backward`` (the autograd backward, on autograd's
+``render_partial_unchecked``, around their shared body
+``functional.render_stages``), ``generate`` (``LayeredRenderer.generate``,
+``functional.generate_layers``, ``peel_pipeline``) and ``backward`` (the autograd backward, on autograd's
 thread), and ``validate`` (argument checks and the valence cache). The
 training step (``train.Trainer.step``) is the root ``train_step``: beneath
 it the render's and the backward's ranges, ``loss`` (the mean squared
@@ -131,8 +131,9 @@ def profile_render(
 ):
     """Time every pipeline stage of a full-frame render on this scene.
 
-    Stages, each the port's own function: ``prep`` (projection, the CCW AA
-    corners and the depth/cull of ``ops/rasterize.build_stream``),
+    Stages, each the port's own function: ``prep`` (the screen-space stage
+    ``geometry.project_faces``, which the render body runs, and the
+    depth/cull of ``ops/rasterize.build_stream``),
     ``binning`` (``binning.bin_faces``), ``pack`` (``binning.pack_stream``),
     ``fwd_kernel`` (``composite_forward``), ``bwd_kernel``
     (``composite_backward`` with unit colour and depth cotangents) and
@@ -177,9 +178,8 @@ def profile_render(
             print(f"{name:42s} {ms:9.3f} ms", flush=True)
 
     def prep(verts):
-        verts_ndc, verts_image = G.compute_verts_ndc_image(verts, mv, proj,
-                                                           width, height)
-        aa_verts = G.face_aa_verts_ccw(verts_image, faces)
+        verts_ndc, aa_verts = G.project_faces(verts, faces, mv, proj, width,
+                                              height)
         depth01, _, _, alive = ref_ops.face_depth01(verts_ndc, faces)
         return verts_ndc, aa_verts, depth01, alive
 

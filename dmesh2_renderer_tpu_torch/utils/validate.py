@@ -2,12 +2,15 @@
 
 The port's copy of ``dmesh2_renderer_tpu/utils/validate.py``: malformed
 arguments raise ValueError before any tensor work, with the same messages.
-Arguments may be numpy arrays or torch tensors on any device.
+Arguments may be numpy arrays or torch tensors on any device. Also the
+capacity check after a render (``check_render_stats``), which warns rather
+than raises.
 """
 
 from __future__ import annotations
 
 import hashlib
+import warnings
 import weakref
 
 import numpy as np
@@ -242,3 +245,44 @@ def check_patch_windows(batch_mvp_idx, batch_patch_min, patch_width: int,
         raise ValueError(
             f"patch windows {pm.tolist()} of {patch_width}x{patch_height} "
             f"leave the {width}x{height} frame")
+
+
+def check_render_stats(stats, config, site: str = "render_stats") -> None:
+    """Warn when a render's capacity counters signal truncation.
+
+    ``stats`` has ``num_truncated`` and ``num_grad_contributing`` (a
+    ``RasterAux`` or a training step's ``RenderStats``). Binning truncation
+    drops geometry; a contributing count above ``grad_compact_capacity`` is
+    harmless here (the port's backward reduces every contributing entry)
+    but would make the JAX package's backward drop gradient rows with this
+    config. Costs one scalar device-to-host read, two with
+    ``grad_compact_capacity`` set: each a pass through the host-sync site
+    ``site`` (``overflow_check`` in ``Renderer.forward``, ``render_stats``
+    in ``Trainer.step``). Warns on behalf of its caller's caller.
+    """
+    with host_sync(site):
+        truncated = int(stats.num_truncated)
+    if truncated > 0:
+        warnings.warn(
+            f"binning truncated {truncated} face instances; the rendered "
+            "image is missing geometry. Raise RasterConfig.binning_capacity "
+            "(or max_tiles_per_face for faces spanning many tiles).",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+    cap = config.grad_compact_capacity
+    if not cap:
+        return
+    with host_sync(site):
+        contributing = int(stats.num_grad_contributing)
+    if contributing > cap:
+        warnings.warn(
+            f"{contributing} entries contribute gradients but "
+            f"grad_compact_capacity={cap}. This backward reduces every "
+            "contributing entry, so its gradients stay right; the JAX "
+            "package's backward would drop the excess with this config and "
+            "give wrong gradients. Raise RasterConfig.grad_compact_capacity "
+            "to keep the config portable.",
+            RuntimeWarning,
+            stacklevel=3,
+        )

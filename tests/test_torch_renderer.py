@@ -16,7 +16,9 @@ from dmesh2_renderer_tpu.functional import render as jax_render
 from dmesh2_renderer_tpu.functional import render_banded as jax_render_banded
 from dmesh2_renderer_tpu.models.renderer import Renderer as JaxRenderer
 from dmesh2_renderer_tpu.utils.config import RasterConfig as JaxConfig
-from dmesh2_renderer_tpu_torch import RasterConfig, Renderer, render, render_banded
+from dmesh2_renderer_tpu_torch import (
+    RasterConfig, Renderer, render, render_banded, render_partial,
+)
 from dmesh2_renderer_tpu_torch.convert import config_from_jax, scene_from_jax
 from tests._torch_port import scene_arrays, to_numpy
 
@@ -92,6 +94,40 @@ def test_functional_render_matches_jax():
     np.testing.assert_allclose(to_numpy(got[0]), np.asarray(want[0]), **OWN_RAYS_TOL)
     np.testing.assert_allclose(to_numpy(got[1]), np.asarray(want[1]), **OWN_RAYS_TOL)
     assert [int(x) for x in got[2]] == [int(x) for x in want[2]]
+
+
+@pytest.mark.parametrize("origin,shape", [((0, 0), (H, W)), ((12, 16), (PH, PW))],
+                         ids=["full_frame", "patch"])
+def test_renderer_forward_equals_render_partial(origin, shape):
+    """Renderer.forward and functional.render_partial run one render body:
+    the same views and window give the same colour, depth and gradients of
+    the four parameters, bit for bit, though the Renderer gathers its rays
+    from precomputed full-frame maps and render_partial computes the
+    window's."""
+    s = scene_arrays(b=2, seed=4)
+    cfg = config_from_jax(dataclasses.asdict(JAX_CFG))
+    keys = ("verts", "verts_color", "faces_opacity", "faces_intense")
+    order = MVP_IDX.tolist()
+    outs = []
+    for front in ("renderer", "functional"):
+        p = {k: torch.as_tensor(s[k]).clone().requires_grad_(True) for k in keys}
+        scene = (p["verts"], s["faces"], p["verts_color"], p["faces_opacity"],
+                 p["faces_intense"], s["background"])
+        if front == "renderer":
+            renderer = Renderer(s["mv"], s["proj"], W, H, device="cpu", config=cfg)
+            color, depth = renderer.forward(order, [list(origin)] * len(order),
+                                            shape[1], shape[0], *scene)
+        else:
+            color, depth_raw, _, _ = render_partial(
+                *scene[:5], s["mv"][order], s["proj"][order], s["background"], W, H,
+                1.0, cfg, patch_origin=origin, patch_shape=shape, device="cpu")
+            depth = 1.0 - (depth_raw + 1.0) / 2.0
+        (color.sum() + depth.sum()).backward()
+        outs.append([color, depth] + [p[k].grad for k in keys])
+    assert outs[0][0].shape == (len(order), *shape, 3)
+    for name, a, b in zip(("color", "depth") + keys, *outs):
+        assert torch.equal(a, b), name
+        assert torch.count_nonzero(a) > 0, name
 
 
 def test_render_banded_matches_full_frame_and_jax():
