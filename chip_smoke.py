@@ -680,19 +680,49 @@ def in_prefixes(bwd_args, table):
     return torch.where(keep[:, None], table, 0.0)
 
 
+def check_tally(args, out, work, label):
+    """composite_bwd again on ``args`` with a tally: the same bits as ``out``
+    (its table, rows outside the prefixes zeroed), and its queued pairs,
+    gradient batches and butterflies equal to the plain version's
+    ``blend_pairs`` and ``grad_batches`` (``work``; one butterfly a batch).
+    Prints the gradient pass's lane occupancy, pairs / (32 x batches),
+    beside one thread per pixel's, pairs / (32 x blend_warp_entries)."""
+    from dmesh2_renderer_tpu_torch.ops.composite_bwd import composite_backward
+
+    tally = torch.zeros(3, dtype=torch.int64, device=args[0].device)
+    again = in_prefixes(args, composite_backward(*args, tally=tally))
+    got = tally.tolist()
+    want = [int(work[k]) for k in ("blend_pairs", "grad_batches", "grad_batches")]
+    warps = int(work["blend_warp_entries"])
+    lanes = want[0] / (32 * want[1]) if want[1] else 0.0
+    per_pixel = want[0] / (32 * warps) if warps else 0.0
+    print(f"    {label}: composite_bwd queued {got[0]} pairs in {got[1]} batches, "
+          f"{got[2]} butterflies (plain: blend_pairs {want[0]}, grad_batches {want[1]}); "
+          f"lane occupancy {100 * lanes:.1f}% (one thread per pixel {100 * per_pixel:.1f}% "
+          f"over {warps} warp entries)")
+    if got != want:
+        raise AssertionError(f"{label}: composite_bwd tally {got} != plain {want}")
+    if not torch.equal(again, out):
+        raise AssertionError(f"{label}: composite_bwd differs between two runs")
+
+
 def check_backward(calls, label, report, work=None):
     """Hold composite_bwd's output from one backward (``calls`` from
     :func:`captured_kernel_calls`) against its plain version on the same
-    inputs, on the rows of the contributing prefixes; ``work`` is passed on
-    to count the work of these inputs."""
+    inputs, on the rows of the contributing prefixes, then its tally
+    (:func:`check_tally`); ``work`` is passed on to count the work of these
+    inputs."""
     from dmesh2_renderer_tpu_torch.ops.composite_bwd import composite_backward_plain
 
     args, out = calls["composite_backward"]
     out = in_prefixes(args, out)
+    work = {} if work is None else work
     plain = composite_backward_plain(*args, work=work)
     sync()
-    err = compare_backward(out, plain, f"{label} tau={args[-1]}")
+    label = f"{label} tau={args[-1]}"
+    err = compare_backward(out, plain, label)
     report["composite_bwd"]["max_abs_err"] = max(report["composite_bwd"]["max_abs_err"], err)
+    check_tally(args, out, work, label)
     return plain
 
 
@@ -919,6 +949,7 @@ def phase_stress(dev, sz: Sizes, report):
         report["composite_bwd"]["max_abs_err"] = max(report["composite_bwd"]["max_abs_err"], err)
         if not torch.equal(grads[0], grads[1]):
             raise AssertionError(f"stress tau={tau}: composite_bwd differs between two runs")
+        check_tally(bwd_args, grads[0], work, f"stress tau={tau}")
         idle += int(work["records"]) - int(work["grad_records"])
         print(f"    prefixes min(count, nc_tile): {n_loop.tolist()}; entries of a "
               f"prefix no pixel blends: {int(work['records']) - int(work['grad_records'])} "
@@ -1442,6 +1473,10 @@ def phase_main_path(dev, sz: Sizes, report, kernels):
     main_label = f"main {sz.width}x{sz.height}"
     check_kernels(calls, main_label, report, work=work)
     check_backward(calls, main_label, report, work=bwd_work)
+    pairs = int(bwd_work["blend_pairs"])
+    report["composite_bwd"]["lane_occupancy"] = dict(
+        gradient_pass=pairs / (32 * int(bwd_work["grad_batches"])),
+        one_thread_per_pixel=pairs / (32 * int(bwd_work["blend_warp_entries"])))
     print("  work these inputs need (plain versions' counts): forward "
           f"{ {k: int(v) for k, v in work.items()} }, backward "
           f"{ {k: int(v) for k, v in bwd_work.items()} }")

@@ -206,7 +206,7 @@ COMPOSITE_BWD = Kernel("composite_bwd", "composite_bwd.cu", [
     P, P, P,              # g_color, g_depth, g_final_t
     I, I, I, I, I,        # B, H, W, gx, gy
     F, F,                 # tau, 1 - tau
-    P, P,                 # out, stream
+    P, P, P,              # out, tally (or null), stream
 ], extra_flags=("-fmad=false",), companions=(GRAD_REDUCE,))
 
 # peel is built without FMA contraction so that its hit tests round every

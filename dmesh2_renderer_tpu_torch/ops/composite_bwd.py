@@ -126,7 +126,10 @@ def composite_backward_plain(records, tile_starts, tile_counts, nc_tile,
     int64 tensors: ``records`` (entries walked: the contributing prefixes),
     ``grad_records`` (of those, entries with a blending pixel), ``pairs``
     ((entry, pixel) pairs a pixel still needs), ``bbox_pairs`` (of those,
-    inside the face's bbox) and ``blend_pairs``.
+    inside the face's bbox), ``blend_pairs``, ``blend_warp_entries`` ((entry,
+    8x4-pixel warp) pairs with a blending pixel, in the kernel's
+    ``warp_pixel_x/y`` layout) and ``grad_batches`` (the kernel's gradient
+    batches: each entry's blending pairs of a tile in batches of 32).
     """
     b, h, w, _ = ray_d.shape
     gx, gy = tile_grid_size(patch_width, patch_height)
@@ -161,7 +164,7 @@ def composite_backward_plain(records, tile_starts, tile_counts, nc_tile,
     zero = torch.zeros_like(px0)
     if work is not None:
         for key in ("records", "grad_records", "pairs", "bbox_pairs",
-                    "blend_pairs"):
+                    "blend_pairs", "blend_warp_entries", "grad_batches"):
             work[key] = torch.zeros((), dtype=torch.int64, device=dev)
 
     n_steps = int(n_loop.max()) if n_loop.numel() else 0
@@ -174,11 +177,17 @@ def composite_backward_plain(records, tile_starts, tile_counts, nc_tile,
                             py1, tau)
         active = live & q.passes
         if work is not None:
+            n_blend = active.sum(dim=1)
             work["records"] += in_loop.sum()
-            work["grad_records"] += active.any(dim=1).sum()
+            work["grad_records"] += (n_blend > 0).sum()
             work["pairs"] += live.sum()
             work["bbox_pairs"] += (live & q.bbox_ok).sum()
-            work["blend_pairs"] += active.sum()
+            work["blend_pairs"] += n_blend.sum()
+            # Lanes row-major in the tile -> (row quarter, row, column half,
+            # column): warp (quarter, half) covers 8x4 pixels.
+            warps = active.reshape(-1, 4, 4, 2, 8).any(dim=4).any(dim=2)
+            work["blend_warp_entries"] += warps.sum()
+            work["grad_batches"] += ((n_blend + 31) // 32).sum()
 
         def col(i):
             return rec[:, i:i + 1]
@@ -263,7 +272,7 @@ def composite_backward_plain(records, tile_starts, tile_counts, nc_tile,
 def composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
                        ray_d, background, patch_min, color, depth, final_t,
                        prev_t, g_color, g_depth, g_final_t, patch_width: int,
-                       patch_height: int, aa_temperature: float):
+                       patch_height: int, aa_temperature: float, tally=None):
     """Run the backward compositor.
 
     Args:
@@ -274,6 +283,12 @@ def composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
         patch_min: (B, 2) int32.
       color (B, H, W, 3), depth, final_t, prev_t (B, H, W): forward outputs.
       g_color, g_depth, g_final_t: their cotangents, same shapes.
+      tally: None, or a (3,) int64 tensor on the records' device that
+        receives, added to what it holds, the blending pairs queued, the
+        gradient pass's batches of up to 32 and the butterflies it runs,
+        one per batch (on the CPU the plain version's ``blend_pairs`` and
+        ``grad_batches`` twice). Its lane occupancy is pairs / (32 x
+        batches).
     Returns the (R, 32) f32 gradient records. On CUDA tensors the kernel
     writes each row of the contributing prefixes whole and leaves every
     other row unset, as the backward wants (``reduce_entry_grads`` never
@@ -286,8 +301,13 @@ def composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
             background, patch_min, color, depth, final_t, prev_t, g_color,
             g_depth, g_final_t)
     if dev.type == "cpu":
-        return composite_backward_plain(*args, patch_width, patch_height,
-                                        aa_temperature)
+        work = None if tally is None else {}
+        out = composite_backward_plain(*args, patch_width, patch_height,
+                                       aa_temperature, work=work)
+        if tally is not None:
+            tally += torch.stack([work[k] for k in (
+                "blend_pairs", "grad_batches", "grad_batches")])
+        return out
     b, h, w, _ = ray_d.shape
     if (h, w) != (patch_height, patch_width):
         raise ValueError(f"ray_d is {h}x{w}, patch is {patch_height}x{patch_width}")
@@ -312,7 +332,7 @@ def composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
         ("g_color", g_color, f32, (b, h, w, 3)),
         ("g_depth", g_depth, f32, pix),
         ("g_final_t", g_final_t, f32, pix),
-    ])
+    ] + ([] if tally is None else [("tally", tally, torch.int64, (3,))]))
     _kernels.check_aligned("records", records)
     out = torch.empty((r, GRAD_RECORD_WIDTH), dtype=f32, device=dev)
     if n_tiles == 0 or r == 0:
@@ -329,7 +349,8 @@ def composite_backward(records, tile_starts, tile_counts, nc_tile, ray_o_cam,
             P(color.data_ptr()), P(depth.data_ptr()), P(final_t.data_ptr()),
             P(prev_t.data_ptr()), P(g_color.data_ptr()), P(g_depth.data_ptr()),
             P(g_final_t.data_ptr()), b, h, w, gx, gy, tau, 1.0 - tau,
-            P(out.data_ptr()), _kernels.current_stream(dev),
+            P(out.data_ptr()), P(None if tally is None else tally.data_ptr()),
+            _kernels.current_stream(dev),
         )
     _kernels.COMPOSITE_BWD.launched(err)
     return out

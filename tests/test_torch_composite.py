@@ -172,13 +172,15 @@ def _faint_records():
 def _expected_work(tau, prefix):
     """Work counts of the tile lists cut to ``prefix`` (T,) entries, counted
     with numpy and the JAX reference's blend masks: (records, pairs,
-    bbox_pairs, blend_pairs, grad_records)."""
+    bbox_pairs, blend_pairs, grad_records, blend_warp_entries,
+    grad_batches)."""
     s, a = _inputs()
     f = s["faces"].shape[0]
     masks = _jax_blend_masks(tau)
     aa = np.array(JB.unblock_stream(jnp.asarray(a["stream"])))[:, REC_AA:REC_AA + 6]
     gx, gy = -(-W // 16), -(-H // 16)
-    got = dict(records=0, pairs=0, bbox_pairs=0, blend_pairs=0, grad_records=0)
+    got = dict(records=0, pairs=0, bbox_pairs=0, blend_pairs=0, grad_records=0,
+               blend_warp_entries=0, grad_batches=0)
     for t in range(B * gx * gy):
         b, ty, tx = t // (gx * gy), (t % (gx * gy)) // gx, t % gx
         ys, xs = np.mgrid[16 * ty:min(16 * ty + 16, H), 16 * tx:min(16 * tx + 16, W)]
@@ -195,6 +197,11 @@ def _expected_work(tau, prefix):
         got["bbox_pairs"] += int(bbox.sum())
         got["blend_pairs"] += int(blend.sum())
         got["grad_records"] += int(blend.any(axis=1).sum())
+        # The kernel's warps: 8x4 pixel blocks of the tile.
+        warp = ((ys % 16) // 4 * 2 + (xs % 16) // 8).ravel()
+        got["blend_warp_entries"] += sum(len(np.unique(warp[row])) for row in blend)
+        # The backward kernel's gradient batches: 32 pairs of one entry each.
+        got["grad_batches"] += int(sum(-(-n // 32) for n in blend.sum(axis=1)))
     return got
 
 
@@ -230,7 +237,9 @@ def test_backward_work_counts(tau):
     """``composite_backward_plain(..., work=)``, which the backward kernel's
     bound is computed from: the contributing prefixes min(count, nc_tile)
     walked, their pairs, bbox pairs, blend pairs and the entries with a
-    blending pixel, counted as in :func:`test_forward_work_counts`."""
+    blending pixel, counted as in :func:`test_forward_work_counts`; the
+    (entry, warp) pairs with a blending pixel and the kernel's gradient
+    batches."""
     s, a = _inputs()
     color, depth, final_t, prev_t, _, nc_tile = _forward_faint(tau)
     ones = torch.ones_like(depth)

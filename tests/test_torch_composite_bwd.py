@@ -20,10 +20,13 @@ from dmesh2_renderer_tpu.ops.pallas_bwd import scatter_entry_grads as jax_scatte
 from dmesh2_renderer_tpu.ops.pallas_fwd import composite_forward as jax_forward
 from dmesh2_renderer_tpu.ops.reference import face_depth01
 from dmesh2_renderer_tpu.utils.meshes import icosphere, orbit_cameras
-from dmesh2_renderer_tpu_torch.ops.binning import contributing_mask
+from dmesh2_renderer_tpu_torch.ops.binning import (
+    REC_AA, REC_C, REC_IN, REC_OP, REC_V, REC_Z, contributing_mask,
+)
 from dmesh2_renderer_tpu_torch.ops.composite_bwd import (
     composite_backward, composite_backward_plain, scatter_entry_grads,
 )
+from dmesh2_renderer_tpu_torch.ops.composite_fwd import composite_forward
 from tests._torch_port import to_numpy
 
 W, H, B = 32, 16, 2
@@ -208,3 +211,53 @@ def test_reduction_matches_scatter_entry_grads():
         np.testing.assert_allclose(to_numpy(g), w, rtol=2e-6,
                                    atol=2e-6 * max(np.abs(w).max(), 1.0))
         assert np.abs(w).max() > 0.1
+
+
+def test_one_face_counts_blending_warps_and_batches():
+    """One face on the plane z = 1, seen from the origin through the pixel
+    centres of one 16x16 tile at tau = 0, with corners (0, 0), (16.25, 0)
+    and (0, 16.25): it blends the 136 pixels with x + y <= 15. The warps'
+    8x4 blocks at (8 * half, 4 * quarter) meet them where 8 * half + 4 *
+    quarter <= 15: all four of the left half, two of the right. Queued, the
+    136 pairs make five batches of up to 32, one butterfly each."""
+    corners = [(0.0, 0.0), (16.25, 0.0), (0.0, 16.25)]
+    rec = torch.zeros((1, 32))
+    for k, (cx, cy) in enumerate(corners):
+        rec[0, REC_V + 3 * k:REC_V + 3 * k + 3] = torch.tensor([cx, cy, 1.0])
+        rec[0, REC_AA + 2 * k:REC_AA + 2 * k + 2] = torch.tensor([cx, cy])
+        rec[0, REC_C + 3 * k:REC_C + 3 * k + 3] = torch.tensor([0.2, 0.5, 0.8])
+        rec[0, REC_Z + k] = 0.5
+    rec[0, REC_OP], rec[0, REC_IN] = 0.5, 1.0
+    ys, xs = torch.meshgrid(torch.arange(16.0), torch.arange(16.0), indexing="ij")
+    ray_d = torch.stack([xs + 0.5, ys + 0.5, torch.ones_like(xs)], dim=-1)[None]
+    starts, counts = torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
+    ray_o, bg = torch.zeros((1, 3)), torch.tensor([0.1, 0.2, 0.3])
+    patch_min = torch.zeros((1, 2), dtype=torch.int32)
+    color, depth, final_t, prev_t, _, nc_tile = composite_forward(
+        rec, starts, counts, ray_o, ray_d, bg, patch_min, 16, 16, 0.0)
+    g = torch.ones_like(depth)
+    args = (rec, starts, counts, nc_tile, ray_o, ray_d, bg, patch_min, color, depth,
+            final_t, prev_t, torch.ones_like(color), g, g, 16, 16, 0.0)
+    work = {}
+    composite_backward_plain(*args, work=work)
+    assert {k: int(v) for k, v in work.items()} == dict(
+        records=1, grad_records=1, pairs=256, bbox_pairs=256, blend_pairs=136,
+        blend_warp_entries=6, grad_batches=5)
+    assert ((final_t[0] < 1.0) == (xs + ys <= 15)).all()
+    tally = torch.full((3,), 7, dtype=torch.int64)
+    composite_backward(*args, tally=tally)
+    assert tally.tolist() == [7 + 136, 7 + 5, 7 + 5]
+
+
+@pytest.mark.parametrize("tau", [1.0, 0.0])
+def test_tally_is_the_plain_work_counts(tau):
+    """On CPU tensors the tally adds the plain version's queued pairs and
+    gradient batches (one butterfly each), and the records stay the same."""
+    args = _port_args(tau)
+    work, tally = {}, torch.zeros(3, dtype=torch.int64)
+    want = composite_backward_plain(*args, work=work)
+    torch.testing.assert_close(composite_backward(*args, tally=tally), want,
+                               rtol=0, atol=0)
+    assert tally.tolist() == [int(work[k]) for k in (
+        "blend_pairs", "grad_batches", "grad_batches")]
+    assert work["grad_batches"] < work["blend_warp_entries"]
