@@ -9,8 +9,10 @@ returns the broken one.
 * ``half_batch``: half of the batch left out: every other tile's list
   emptied after the binning; the peel's second view left out.
 * ``altered``: an answer altered where it is produced: one pixel's colour
-  by 0.01; the gradient record of the entry with the largest opacity
-  gradient scaled by 1.5 (train); the first layer of every seventh pixel.
+  by 0.01; the gradient record scaled by 1.5 whose opacity gradient is the
+  largest of the rows the reduction reads, those of the contributing
+  prefixes (train, trainer; the card leaves every other row unset); the
+  first layer of every seventh pixel.
 
 The cells run on one chip, so there is no exchange between chips to leave
 out.
@@ -22,6 +24,8 @@ import contextlib
 import importlib
 
 import torch
+
+from bench_port.reference.binning import REC_OP, contributing_mask
 
 RASTERIZE = "dmesh2_renderer_tpu_torch.ops.rasterize"
 FUNCTIONAL = "dmesh2_renderer_tpu_torch.functional"
@@ -58,9 +62,18 @@ def one_pixel(orig):
 
 
 def one_record(orig):
-    def f(*args):
-        out = orig(*args).clone()
-        row = int(out[:, 18].abs().argmax())
+    """``composite_backward`` with one record scaled: the row of the
+    largest |opacity gradient| among the contributing prefixes'. Rows
+    outside them may hold anything (NaN, inf, stale bytes), and nothing
+    reads them, so none of them is ever chosen."""
+    def f(records, tile_starts, tile_counts, nc_tile, *rest):
+        out = orig(records, tile_starts, tile_counts, nc_tile, *rest).clone()
+        keep = contributing_mask(tile_starts, tile_counts, nc_tile, out.shape[0])
+        opacity = torch.where(keep, out[:, REC_OP].abs(), -1.0)
+        row = int(opacity.argmax())
+        if not float(opacity[row]) > 0:
+            raise RuntimeError("altered_gradient: no row of the contributing prefixes has "
+                               "a non-zero opacity gradient, so the fault would alter nothing")
         out[row, :29] *= 1.5
         return out
     return f

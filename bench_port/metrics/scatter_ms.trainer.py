@@ -1,6 +1,7 @@
 """``scatter_ms.trainer``: device milliseconds per iteration of the
 operations enqueued inside the port's ``dmesh2/scatter`` ranges
-(``contributing_mask`` and ``scatter_entry_grads`` over every view)."""
+(``reduce_entry_grads`` over every view: the ``grad_reduce`` kernel and the
+fills and copies of its outputs)."""
 
 from bench_port import port_spans
 

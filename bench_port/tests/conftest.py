@@ -6,7 +6,8 @@ files with smaller sizes) and mixes with few iterations, points the
 harness there and returns a ``BENCHMARK.json``-shaped dict whose cells
 are the real ones' under those names: ``tiny.train``, ``tiny.forward``,
 ``tiny.peel4`` and ``tiny.peel17``, each judged by the limits of the
-real cell it stands for.
+real cell it stands for. ``trainer_bench`` adds ``tiny.trainer``, the
+twin of ``soup1m_16view_1080p.trainer``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import pytest
 
 from bench_port import harness
 
+REAL_TRAINER = "soup1m_16view_1080p.trainer"
+TINY_TRAINER = "tiny.trainer"
 STANDS_FOR = {"tiny.train": "soup1m_1080p.train", "tiny.forward": "soup1m_1080p.forward",
               "tiny.peel4": "tetgrid32_1080p.peel8", "tiny.peel17": "tetgrid32_1080p.peel32"}
 
@@ -61,4 +64,31 @@ def tiny_bench(tmp_path, monkeypatch):
         if "workloads" in m:
             m["workloads"] = [t for t, c in STANDS_FOR.items() if c in m["workloads"]]
     monkeypatch.setattr(harness, "BENCH", tmp_path)
+    return spec
+
+
+@pytest.fixture
+def trainer_bench(tiny_bench):
+    """``tiny_bench`` with the tiny twin of the trainer cell (the same
+    configuration file at 40x36, three views, 80 faces), judged by the
+    real cell's limits."""
+    root = harness.BENCH
+    cfg = json.loads((root / "configs/soup1m_16view_1080p.json").read_text())
+    cfg.update(name="tiny_trainer", width=40, height=36)
+    cfg["scene"].update(n_faces=80, size=0.1)
+    cfg["cameras"]["views"] = 3
+    cfg["appearance"]["targets"].update(cells=[3, 4], height=36, width=40)
+    cfg["raster"].update(binning_capacity=1 << 13, num_giant_faces=3 * 64)
+    (root / "configs/tiny_trainer.json").write_text(json.dumps(cfg))
+    mix = json.loads((root / "mixes/trainer.json").read_text())
+    mix.update(warmup=2, trace_iterations=2)
+    (root / "mixes/trainer.json").write_text(json.dumps(mix))
+    (root / f"checks/{TINY_TRAINER}.json").write_text(
+        (root / f"checks/{REAL_TRAINER}.json").read_text())
+    spec = dict(tiny_bench)
+    spec["workloads"] = tiny_bench["workloads"] + [
+        dict(name=TINY_TRAINER, config="tiny_trainer", traffic="trainer", chips=1, why="tiny")]
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if m["name"] == "step_ms" or m["name"].endswith(".trainer"):
+            m["workloads"] = [w for w in m["workloads"] if w != REAL_TRAINER] + [TINY_TRAINER]
     return spec

@@ -1,5 +1,6 @@
 """The ``trainer`` loop kind on a tiny twin of ``soup1m_16view_1080p.trainer``
-(the same configuration file at 40x36, three views, 80 faces), on the CPU:
+(``trainer_bench``: the same configuration file at 40x36, three views,
+80 faces), on the CPU:
 sound runs are correct, the control and every planted fault fail the
 cell's limits, and running it edits no file the benchmark had."""
 
@@ -25,38 +26,13 @@ def digests(root):
             if p.is_file()}
 
 
-@pytest.fixture
-def trainer_bench(tiny_bench):
-    """``tiny_bench`` with the tiny twin of the trainer cell, judged by the
-    real cell's limits, and the digests of the benchmark's files then."""
-    root = harness.BENCH
-    cfg = json.loads((root / "configs/soup1m_16view_1080p.json").read_text())
-    cfg.update(name="tiny_trainer", width=40, height=36)
-    cfg["scene"].update(n_faces=80, size=0.1)
-    cfg["cameras"]["views"] = 3
-    cfg["appearance"]["targets"].update(cells=[3, 4], height=36, width=40)
-    cfg["raster"].update(binning_capacity=1 << 13, num_giant_faces=3 * 64)
-    (root / "configs/tiny_trainer.json").write_text(json.dumps(cfg))
-    mix = json.loads((root / "mixes/trainer.json").read_text())
-    mix.update(warmup=2, trace_iterations=2)
-    (root / "mixes/trainer.json").write_text(json.dumps(mix))
-    (root / f"checks/{TINY}.json").write_text((root / f"checks/{REAL}.json").read_text())
-    spec = dict(tiny_bench)
-    spec["workloads"] = tiny_bench["workloads"] + [
-        dict(name=TINY, config="tiny_trainer", traffic="trainer", chips=1, why="tiny")]
-    for m in spec["end_to_end"] + spec["per_layer"]:
-        if m["name"] == "step_ms" or m["name"].endswith(".trainer"):
-            m["workloads"] = [w for w in m["workloads"] if w != REAL] + [TINY]
-    return spec, digests(root)
-
-
 def run(spec, trace=False, seed=SEED):
     return harness.run_cell(spec, TINY, seed, 0.2, trace, "cpu", time.perf_counter(),
                             log=lambda msg: None)
 
 
 def test_sound_runs_are_correct_and_edit_nothing(trainer_bench):
-    spec, before = trainer_bench
+    spec, before = trainer_bench, digests(harness.BENCH)
     r = run(spec)
     assert r["correct"], r["checks"]
     assert r["attempted"] >= 1 and r["failed"] == 0
@@ -73,7 +49,7 @@ def test_sound_runs_are_correct_and_edit_nothing(trainer_bench):
 
 @pytest.mark.parametrize("fault", list(harness.load_module("loops", "trainer").FAULTS))
 def test_a_broken_step_is_not_correct(trainer_bench, fault):
-    spec, _ = trainer_bench
+    spec = trainer_bench
     with planted("trainer", fault):
         r = run(spec)
     assert not r["correct"], r["checks"]
@@ -83,7 +59,7 @@ def test_the_control_fails_the_cells_limits(trainer_bench):
     """The reference with TF32 camera products, in the program's place and
     from the program's snapshot, on three seeds: each fails one of the
     cell's numbers at least."""
-    spec, _ = trainer_bench
+    spec = trainer_bench
     cell = harness.workload(spec, TINY)
     config = harness.load_data("configs", cell["config"])
     mix = harness.load_data("mixes", cell["traffic"])
