@@ -102,7 +102,8 @@ class Renderer:
                 self.width, self.height, aa_temperature, self.config, dev)
             self.last_aux = aux
             if self.config.warn_on_overflow:
-                check_render_stats(aux, self.config, "overflow_check")
+                with span("stats"):
+                    check_render_stats(aux, self.config, "overflow_check")
             return color, 1.0 - (depth_raw + 1.0) / 2.0
 
     __call__ = forward

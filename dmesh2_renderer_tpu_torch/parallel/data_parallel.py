@@ -48,11 +48,14 @@ class SceneParams(NamedTuple):
 
 class RenderStats(NamedTuple):
     """Per-step capacity counters, max-reduced over the ranks: entries the
-    binning dropped, and entries inside some tile's contributing prefix
-    (what the JAX package's ``grad_compact_capacity`` must cover)."""
+    binning dropped, entries inside some tile's contributing prefix (what
+    the JAX package's ``grad_compact_capacity`` must cover) and the
+    binning's rect slots, ``num_rendered`` (not in the JAX package's
+    stats)."""
 
     num_truncated: torch.Tensor          # () int64
     num_grad_contributing: torch.Tensor  # () int64
+    num_rendered: torch.Tensor           # () int64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,11 +296,12 @@ def make_sharded_train_step(
             loss_mean = _reduce_grads(mesh, params, mesh.world_size, loss.detach())
         else:
             loss_mean = loss.detach()
-        stats = torch.stack([aux.num_truncated, aux.num_grad_contributing])
+        stats = torch.stack([aux.num_truncated, aux.num_grad_contributing,
+                             aux.num_rendered])
         stats = _all_reduce(mesh, stats, dist.ReduceOp.MAX)
         with span("optimizer"):
             opt_state.step()
-        return params, opt_state, loss_mean, RenderStats(stats[0], stats[1])
+        return params, opt_state, loss_mean, RenderStats(*stats)
 
     step.init = lambda params: optimizer(list(params))
     return step

@@ -98,10 +98,11 @@ def render_pixels_sharded(
             n, device=mesh.device)
     depth = 1.0 - (depth_raw + 1.0) / 2.0
     stats = torch.stack(_gather_axis(mesh, torch.stack(
-        [aux.num_truncated, aux.num_grad_contributing]), axis)).amax(dim=0)
+        [aux.num_truncated, aux.num_grad_contributing, aux.num_rendered]),
+        axis)).amax(dim=0)
     return (torch.cat(_gather_axis(mesh, color, axis), dim=1),
             torch.cat(_gather_axis(mesh, depth, axis), dim=1),
-            RenderStats(stats[0], stats[1]))
+            RenderStats(*stats))
 
 
 def band_loss(params: SceneParams, faces, faces_intense, mv, proj,
@@ -111,7 +112,8 @@ def band_loss(params: SceneParams, faces, faces_intense, mv, proj,
     """The per-rank loss of the grid step: band ``k`` of ``n`` of the given
     views, against ``target_color``, that band's rows of those views. Returns
     (mean squared colour error plus ``depth_weight`` times the mean squared
-    depth, differentiable; stats (num_truncated, num_grad_contributing))."""
+    depth, differentiable; stats (num_truncated, num_grad_contributing,
+    num_rendered))."""
     color, depth_raw, _final_t, aux = render_band(
         params.verts, faces, params.verts_color, params.faces_opacity,
         faces_intense, mv, proj, background, width, height, aa_temperature,
@@ -123,7 +125,8 @@ def band_loss(params: SceneParams, faces, faces_intense, mv, proj,
         if depth_weight:
             depth = 1.0 - (depth_raw + 1.0) / 2.0
             loss = loss + depth_weight * torch.mean(depth ** 2)
-    return loss, torch.stack([aux.num_truncated, aux.num_grad_contributing])
+    return loss, torch.stack([aux.num_truncated, aux.num_grad_contributing,
+                              aux.num_rendered])
 
 
 def make_grid_train_step(
@@ -183,7 +186,7 @@ def make_grid_train_step(
         stats = _all_reduce(mesh, stats, dist.ReduceOp.MAX)
         with span("optimizer"):
             opt_state.step()
-        return params, opt_state, loss.detach(), RenderStats(stats[0], stats[1])
+        return params, opt_state, loss.detach(), RenderStats(*stats)
 
     step.init = lambda params: optimizer(list(params))
     return step

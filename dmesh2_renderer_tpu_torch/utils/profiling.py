@@ -17,7 +17,9 @@ thread), and ``validate`` (argument checks and the valence cache). The
 training step (``train.Trainer.step``) is the root ``train_step``: beneath
 it the render's and the backward's ranges, ``loss`` (the mean squared
 error), ``optimizer`` (the optimizer's step) and ``stats`` (the capacity
-check, whose reads are the host-sync site ``render_stats``).
+check, whose read is the host-sync site ``render_stats``);
+``Renderer.forward`` opens ``stats`` around its own capacity check (site
+``overflow_check``).
 
 :func:`span` costs one global read while no ``torch.profiler`` records;
 under one it opens ``record_function("dmesh2/<name>")``, so the ranges sit
@@ -25,7 +27,10 @@ on the profiler's own clock beside the CUDA activity it traces. There is no
 switch: a profile of any caller shows them. :func:`host_sync` marks each
 point where the host waits for the device; it counts every pass in a plain
 dict, profiler or not, and under a profiler opens ``dmesh2/sync/<site>``.
-:func:`counters` reads those counts with the kernels' launch counts.
+:func:`count_entries` adds a checked render's entry counts (``binned``, the
+binning's rect slots; ``blended``, those in some tile's contributing
+prefix; ``truncated``), as ``utils/validate.py::check_render_stats`` reads
+them. :func:`counters` reads those counts with the kernels' launch counts.
 
 :func:`profile_render`, a port of ``dmesh2_renderer_tpu/utils/profiling.py``,
 runs every stage in isolation on the caller's actual scene, each through the
@@ -52,6 +57,9 @@ from dmesh2_renderer_tpu_torch.ops import _kernels
 _NULL = contextlib.nullcontext()
 # Passes through each host-sync site, by site.
 _syncs = defaultdict(int)
+# Entries of the renders whose capacity counters were read.
+ENTRY_KINDS = ("binned", "blended", "truncated")
+_entries = dict.fromkeys(ENTRY_KINDS, 0)
 
 
 def span(name: str):
@@ -72,19 +80,31 @@ def host_sync(site: str):
     return _autograd_profiler.record_function("dmesh2/sync/" + site)
 
 
+def count_entries(binned: int, blended: int, truncated: int) -> None:
+    """Add one render's entry counts to ``counters()["entries"]``."""
+    for kind, n in zip(ENTRY_KINDS, (binned, blended, truncated)):
+        _entries[kind] += int(n)
+
+
 def counters() -> dict:
-    """``{"syncs": {site: passes}, "launches": {kernel: launches}}``: the
-    host-sync counts and every kernel's ``launches``, since the process
-    started or the last :func:`reset_counters`."""
+    """``{"syncs": {site: passes}, "launches": {kernel: launches},
+    "entries": {"binned": n, "blended": n, "truncated": n}}``: the host-sync
+    counts, every kernel's ``launches`` and the entries of the renders whose
+    capacity counters ``check_render_stats`` read (every ``Trainer.step``
+    and ``Renderer.forward`` with ``warn_on_overflow``, the default), since
+    the process started or the last :func:`reset_counters`."""
     return {"syncs": dict(_syncs),
-            "launches": {k.name: k.launches for k in _kernels.COUNTED}}
+            "launches": {k.name: k.launches for k in _kernels.COUNTED},
+            "entries": dict(_entries)}
 
 
 def reset_counters() -> None:
-    """Zero the host-sync and the launch counts."""
+    """Zero the host-sync, the launch and the entry counts."""
     _syncs.clear()
     for k in _kernels.COUNTED:
         k.launches = 0
+    for kind in ENTRY_KINDS:
+        _entries[kind] = 0
 
 
 def time_fn(fn: Callable, *args, iters: int = 5) -> tuple:

@@ -16,7 +16,7 @@ import weakref
 import numpy as np
 import torch
 
-from dmesh2_renderer_tpu_torch.utils.profiling import host_sync
+from dmesh2_renderer_tpu_torch.utils.profiling import count_entries, host_sync
 
 
 def _shape(x):
@@ -250,18 +250,23 @@ def check_patch_windows(batch_mvp_idx, batch_patch_min, patch_width: int,
 def check_render_stats(stats, config, site: str = "render_stats") -> None:
     """Warn when a render's capacity counters signal truncation.
 
-    ``stats`` has ``num_truncated`` and ``num_grad_contributing`` (a
-    ``RasterAux`` or a training step's ``RenderStats``). Binning truncation
-    drops geometry; a contributing count above ``grad_compact_capacity`` is
-    harmless here (the port's backward reduces every contributing entry)
-    but would make the JAX package's backward drop gradient rows with this
-    config. Costs one scalar device-to-host read, two with
-    ``grad_compact_capacity`` set: each a pass through the host-sync site
-    ``site`` (``overflow_check`` in ``Renderer.forward``, ``render_stats``
-    in ``Trainer.step``). Warns on behalf of its caller's caller.
+    ``stats`` has ``num_rendered``, ``num_truncated`` and
+    ``num_grad_contributing`` (a ``RasterAux`` or a training step's
+    ``RenderStats``). Binning truncation drops geometry; a contributing
+    count above ``grad_compact_capacity`` is harmless here (the port's
+    backward reduces every contributing entry) but would make the JAX
+    package's backward drop gradient rows with this config. The three
+    counts are stacked on their device and read in one device-to-host copy,
+    a pass through the host-sync site ``site`` (``overflow_check`` in
+    ``Renderer.forward``, ``render_stats`` in ``Trainer.step``), and added
+    to ``counters()["entries"]`` (binned, blended, truncated). Warns on
+    behalf of its caller's caller.
     """
+    stacked = torch.stack([stats.num_rendered, stats.num_truncated,
+                           stats.num_grad_contributing])
     with host_sync(site):
-        truncated = int(stats.num_truncated)
+        rendered, truncated, contributing = stacked.tolist()
+    count_entries(rendered, contributing, truncated)
     if truncated > 0:
         warnings.warn(
             f"binning truncated {truncated} face instances; the rendered "
@@ -271,11 +276,7 @@ def check_render_stats(stats, config, site: str = "render_stats") -> None:
             stacklevel=3,
         )
     cap = config.grad_compact_capacity
-    if not cap:
-        return
-    with host_sync(site):
-        contributing = int(stats.num_grad_contributing)
-    if contributing > cap:
+    if cap and contributing > cap:
         warnings.warn(
             f"{contributing} entries contribute gradients but "
             f"grad_compact_capacity={cap}. This backward reduces every "

@@ -155,7 +155,8 @@ def test_two_ranks_match_jax_sharded_train_step(ranks):
         np.testing.assert_allclose(r0[f"sgd_grad_{i}"], (before - params[i]) / W.SGD_LR,
                                    atol=tol, err_msg=name)
         assert np.abs(r0[f"sgd_grad_{i}"]).max() > 1e-4
-    assert r0["sgd_stats"].tolist() == stats
+    # The JAX stats; the port adds num_rendered.
+    assert r0["sgd_stats"].tolist()[:2] == stats
 
 
 def test_two_ranks_train_with_adam_and_resume_exactly(ranks):

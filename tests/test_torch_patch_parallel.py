@@ -122,7 +122,8 @@ def test_world_of_one_equals_functional_render():
         make_pixel_mesh(device="cpu"), *_args(s), W.HW, W.HW, 1.0, _cfg())
     ref_c, ref_d, aux = render(*_args(s), W.HW, W.HW, 1.0, _cfg(), device="cpu")
     assert torch.equal(color, ref_c) and torch.equal(depth, ref_d)
-    assert [int(x) for x in stats] == [0, int(aux.num_grad_contributing)]
+    assert [int(x) for x in stats] == [0, int(aux.num_grad_contributing),
+                                       int(aux.num_rendered)]
 
 
 def test_two_ranks_render_as_one_process(ranks):
@@ -143,7 +144,8 @@ def test_two_ranks_render_matches_jax(ranks):
     color, depth, stats = _jax_pixels()
     np.testing.assert_allclose(ranks[0]["color"], color, atol=JAX_IMAGE_TOL)
     np.testing.assert_allclose(ranks[0]["depth"], depth, atol=JAX_IMAGE_TOL)
-    assert ranks[0]["stats"].tolist() == stats
+    # The JAX stats; the port adds num_rendered.
+    assert ranks[0]["stats"].tolist()[:2] == stats
 
 
 def test_two_ranks_grid_step_matches_jax(ranks):
@@ -156,7 +158,7 @@ def test_two_ranks_grid_step_matches_jax(ranks):
     result = _jax_grid_step((1, WORLD))
     _assert_sgd_matches_jax(float(r0["grid_loss"]),
                             [r0[f"grid_param_{i}"] for i in range(3)], result)
-    assert r0["grid_stats"].tolist() == result[2]
+    assert r0["grid_stats"].tolist()[:2] == result[2]
 
 
 def test_pure_pixel_mesh_step(ranks):

@@ -21,8 +21,9 @@ CFG = RasterConfig(binning_capacity=1 << 13)
 # tensors of the device.
 CALLS = {
     "forward": ("render",
-                {"validate", "prep", "binning", "pack", "fwd_kernel", "sync/view_indices",
-                 "sync/patch_origins", "sync/image_scale", "sync/overflow_check"},
+                {"validate", "prep", "binning", "pack", "fwd_kernel", "stats",
+                 "sync/view_indices", "sync/patch_origins", "sync/image_scale",
+                 "sync/overflow_check"},
                 {"view_indices": 1, "patch_origins": 1, "image_scale": 1,
                  "overflow_check": 1}),
     # The reduction walks the contributing prefixes in place: no sync.

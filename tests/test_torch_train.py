@@ -121,11 +121,12 @@ def test_trainer_surfaces_compaction_overflow():
 
 def test_check_render_stats_warns_on_truncation():
     with pytest.warns(RuntimeWarning, match="binning truncated 5 face instances"):
-        check_render_stats(RenderStats(torch.tensor(5), torch.tensor(0)), CFG)
+        check_render_stats(RenderStats(torch.tensor(5), torch.tensor(0), torch.tensor(9)), CFG)
     import warnings
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        check_render_stats(RenderStats(torch.tensor(0), torch.tensor(10 ** 6)), CFG)
+        check_render_stats(RenderStats(torch.tensor(0), torch.tensor(10 ** 6),
+                                       torch.tensor(10 ** 7)), CFG)
 
 
 def test_trainer_grid_mesh_step():
